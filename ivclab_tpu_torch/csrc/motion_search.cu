@@ -1,7 +1,9 @@
 // Full-search 8x8 block motion estimation for NVIDIA Hopper (sm_90a).
 //
-// Replaces the Pallas TPU kernel ivclab_tpu/ops/motion_pallas.py::_me_kernel
-// (reached through motion_search_pallas). It computes the same thing: for
+// Replaces the two Pallas TPU kernels of ivclab_tpu/ops/motion_pallas.py:
+// _me_kernel (reached through motion_search_pallas, whole frames) and
+// _me_tile_kernel (reached through motion_search_tile_pallas, one row band
+// of a taller frame with its halo rows). Both compute the same thing: for
 // every 8x8 block of the current frame, the SSD against each of the
 // (2*sr+1)^2 displaced reference blocks, out-of-frame candidates skipped
 // (the reference masks them to +inf, which never wins a strict <), and the
@@ -26,12 +28,14 @@
 // PyTorch version exactly, ties included; on other inputs a different
 // summation order can only flip a near-tie.
 //
-// Row window: `ref` points at the reference row aligned with row 0 of `cur`.
-// Relative row r of `ref` is read only when -sr <= r < H + sr and
+// Row window: the kernel reads `ref` through a pointer aligned with row 0 of
+// `cur`. Relative row r of `ref` is read only when -sr <= r < H + sr and
 // 0 <= row0 + r < total_h, and candidate validity uses the global rows
-// row0 + r. A single frame is row0 = 0, total_h = H. A halo-extended band
-// of a taller frame passes its first row as row0, the frame height as
-// total_h, and a pointer sr rows into its [H + 2*sr, W] reference.
+// row0 + r. A whole frame (ivc_motion_search) is row0 = 0, total_h = H. A
+// band (ivc_motion_search_tile) passes its global first row as row0, the
+// frame height as total_h, and a pointer sr rows into its [H + 2*sr, W]
+// halo-extended reference, so the halo rows are read where they exist in
+// the frame and masked where they fall outside it.
 
 #include <cuda_runtime.h>
 
@@ -146,15 +150,8 @@ void launch(const float* ref, const float* cur, int* out, int H, int W, int row0
   me_kernel<SR><<<grid, block, 0, stream>>>(ref, cur, out, H, W, row0, total_h);
 }
 
-}  // namespace
-
-// Returns cudaGetLastError() after the launch (0 on success), or
-// cudaErrorInvalidValue for arguments the kernel does not take.
-extern "C" int ivc_motion_search(const float* ref, const float* cur, int* out, int H,
-                                 int W, int sr, int row0, int total_h, void* stream) {
-  if (H <= 0 || W <= 0 || H % BLK != 0 || W % BLK != 0 || total_h <= 0) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
+int search(const float* ref, const float* cur, int* out, int H, int W, int sr, int row0,
+           int total_h, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   switch (sr) {
     case 1: launch<1>(ref, cur, out, H, W, row0, total_h, s); break;
@@ -167,4 +164,34 @@ extern "C" int ivc_motion_search(const float* ref, const float* cur, int* out, i
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
   return static_cast<int>(cudaGetLastError());
+}
+
+bool frame_ok(int H, int W) { return H > 0 && W > 0 && H % BLK == 0 && W % BLK == 0; }
+
+}  // namespace
+
+// Both entry points return cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue, without launching, for arguments the
+// kernel does not take.
+
+// Whole frame: ref and cur are [H, W].
+extern "C" int ivc_motion_search(const float* ref, const float* cur, int* out, int H, int W,
+                                 int sr, void* stream) {
+  if (!frame_ok(H, W)) return static_cast<int>(cudaErrorInvalidValue);
+  return search(ref, cur, out, H, W, sr, 0, H, stream);
+}
+
+// One row band of a frame of total_h rows: ref_ext is [ext_rows, W] with
+// ext_rows = Ht + 2*sr (the band plus sr halo rows above and below), cur is
+// [Ht, W], and row0 is the frame row of the band's first row, a multiple of
+// 8 with row0 + Ht <= total_h.
+extern "C" int ivc_motion_search_tile(const float* ref_ext, int ext_rows, const float* cur,
+                                      int* out, int Ht, int W, int sr, int row0, int total_h,
+                                      void* stream) {
+  if (!frame_ok(Ht, W) || sr < 1 || sr > 7 || ext_rows != Ht + 2 * sr || row0 < 0 ||
+      row0 % BLK != 0 || row0 > total_h - Ht) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return search(ref_ext + static_cast<long long>(sr) * W, cur, out, Ht, W, sr, row0, total_h,
+                stream);
 }

@@ -93,29 +93,32 @@ def _i64(a, device) -> torch.Tensor:
 # --------------------------------------------------------------------- phases
 
 
+def _symbolize(plane, qt, inv_qt):
+    """[H, W] plane -> (scan-ordered quantized symbols [N, 64] int32, the
+    decoder's reconstruction of the plane)."""
+    H, W = plane.shape
+    coeffs = dct2_fused(_plane_to_blocks(plane))
+    qsym = torch.round(coeffs * inv_qt[None, :]).to(torch.int32)
+    deq = (qsym.to(torch.float32) * qt[None, :]).to(torch.int32)
+    return qsym, _blocks_to_plane(idct2_fused(deq.to(torch.float32)), H, W)
+
+
 def _encode_gop(frames_y, qt, inv_qt, mv_lens, sr: int):
     """[T, H, W] float32 -> per-frame (qsyms, mvs, mv_bits, recons)."""
     T, H, W = frames_y.shape
     dev = frames_y.device
 
-    def symbolize(plane):
-        coeffs = dct2_fused(_plane_to_blocks(plane))
-        qsym = torch.round(coeffs * inv_qt[None, :]).to(torch.int32)
-        deq = (qsym.to(torch.float32) * qt[None, :]).to(torch.int32)
-        recon = _blocks_to_plane(idct2_fused(deq.to(torch.float32)), H, W)
-        return qsym, recon
-
     qsyms, mvs, mv_bits, recons = [], [], [], []
     for t in range(T):
         y = frames_y[t]
         if t == 0:
-            qsym, recon = symbolize(y)
+            qsym, recon = _symbolize(y, qt, inv_qt)
             mv = torch.full((H // 8, W // 8), sr * (2 * sr + 1) + sr, dtype=torch.int32, device=dev)
             bits = torch.zeros((), dtype=torch.int32, device=dev)
         else:
             mv = motion_search(recon, y, sr)
             pred = motion_compensate(recon, mv, sr)
-            qsym, rrec = symbolize(y - pred)
+            qsym, rrec = _symbolize(y - pred, qt, inv_qt)
             bits = mv_lens[mv.clamp(0, mv_lens.shape[0] - 1).long()].sum(dtype=torch.int32)
             recon = pred + rrec
         qsyms.append(qsym)

@@ -1,15 +1,22 @@
 """Block motion estimation / compensation.
 
-Port of ``ivclab_tpu/ops/motion.py``. Full-search block matching returns,
-for each 8x8 block of the current frame, the packed index
+Port of ``ivclab_tpu/ops/motion.py`` and of the band search of
+``ivclab_tpu/parallel/halo.py``. Full-search block matching returns, for
+each 8x8 block of the current frame, the packed index
 ``(dy + sr) * (2 sr + 1) + (dx + sr)`` of the displaced reference block
 with the smallest SSD. Candidates that fall outside the frame are masked
 to +inf, and the argmin takes the first candidate in scan order (dy outer,
 dx inner) on a tie.
 
-``motion_search`` dispatches on the device of its inputs: a CPU tensor
-goes to the plain PyTorch version, a CUDA tensor to the hand-written
-Hopper kernel ``csrc/motion_search.cu`` (or the call raises).
+The band search (``motion_search_tile``) does the same for one row band of
+a taller frame: the reference band arrives with ``sr`` halo rows above and
+below, and row validity comes from the band's first frame row and the
+frame height.
+
+``motion_search`` and ``motion_search_tile`` dispatch on the device of
+their inputs: CPU tensors go to the plain PyTorch version, CUDA tensors to
+the hand-written Hopper kernel ``csrc/motion_search.cu`` (or the call
+raises).
 """
 
 from __future__ import annotations
@@ -19,37 +26,41 @@ import functools
 
 import torch
 
-# Kernel launches made by ``motion_search_cuda`` in this process.
+# Kernel launches made in this process by ``motion_search_cuda`` (whole
+# frames) and by ``motion_search_tile_cuda`` (row bands).
 LAUNCHES = 0
+TILE_LAUNCHES = 0
 
 BLOCK = 8  # block size of the search, the kernel and the codec
 
 
-def motion_search_reference(ref_image: torch.Tensor, image: torch.Tensor,
-                            search_range: int = 4) -> torch.Tensor:
-    """Plain PyTorch full search: one rolled frame per candidate.
+def motion_search_tile_reference(ref_ext: torch.Tensor, cur_tile: torch.Tensor, row0: int,
+                                 total_h: int, search_range: int = 4) -> torch.Tensor:
+    """Plain PyTorch band search: one row slice and column roll per candidate.
 
-    ref_image, image: ``[H, W]`` float32 (H, W multiples of 8).
-    Returns ``[H/8, W/8]`` int32 packed indices.
+    ref_ext: ``[Ht + 2 sr, W]`` reference band with its halo rows;
+    cur_tile: ``[Ht, W]`` current band; row0: frame row of the band's first
+    row; total_h: frame height. Returns ``[Ht/8, W/8]`` int32 packed indices.
     """
     sr = search_range
     block = BLOCK
-    ref = ref_image.to(torch.float32)
-    cur = image.to(torch.float32)
-    H, W = cur.shape
-    hb, wb = H // block, W // block
+    ref = ref_ext.to(torch.float32)
+    cur = cur_tile.to(torch.float32)
+    Ht, W = cur.shape
+    hb, wb = Ht // block, W // block
     dev = cur.device
-    by = torch.arange(hb, dtype=torch.int32, device=dev) * block
+    by = torch.arange(hb, dtype=torch.int32, device=dev) * block + int(row0)
     bx = torch.arange(wb, dtype=torch.int32, device=dev) * block
 
     min_ssd = torch.full((hb, wb), float("inf"), dtype=torch.float32, device=dev)
     best = torch.zeros((hb, wb), dtype=torch.int32, device=dev)
     for dy in range(-sr, sr + 1):
+        rows = ref[sr + dy:sr + dy + Ht]  # candidate rows sit at offset sr + dy
         for dx in range(-sr, sr + 1):
-            shifted = torch.roll(ref, shifts=(-dy, -dx), dims=(0, 1))
+            shifted = torch.roll(rows, shifts=-dx, dims=1)
             diff = cur - shifted
             ssd = (diff * diff).reshape(hb, block, wb, block).sum(dim=(1, 3))
-            valid_y = (by + dy >= 0) & (by + dy + block <= H)
+            valid_y = (by + dy >= 0) & (by + dy + block <= total_h)
             valid_x = (bx + dx >= 0) & (bx + dx + block <= W)
             ssd = ssd.masked_fill(~(valid_y[:, None] & valid_x[None, :]), float("inf"))
             idx = (dy + sr) * (2 * sr + 1) + (dx + sr)
@@ -59,18 +70,48 @@ def motion_search_reference(ref_image: torch.Tensor, image: torch.Tensor,
     return best
 
 
+def motion_search_reference(ref_image: torch.Tensor, image: torch.Tensor,
+                            search_range: int = 4) -> torch.Tensor:
+    """Plain PyTorch full search over one frame.
+
+    ref_image, image: ``[H, W]`` float32 (H, W multiples of 8).
+    Returns ``[H/8, W/8]`` int32 packed indices. A whole frame is the band
+    at row 0 whose halo rows lie outside the frame, so every candidate
+    that reads them is masked.
+    """
+    sr = search_range
+    ref = torch.nn.functional.pad(ref_image.to(torch.float32), (0, 0, sr, sr))
+    return motion_search_tile_reference(ref, image, 0, image.shape[0], sr)
+
+
 @functools.lru_cache(maxsize=None)
-def _kernel_fn():
+def _lib():
     from ivclab_tpu_torch.runtime import cuda_build
 
-    fn = cuda_build.load("motion_search").ivc_motion_search
-    fn.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    fn.restype = ctypes.c_int
-    return fn
+    lib = cuda_build.load("motion_search")
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.ivc_motion_search.argtypes = [vp, vp, vp, i, i, i, vp]
+    lib.ivc_motion_search.restype = i
+    lib.ivc_motion_search_tile.argtypes = [vp, i, vp, vp, i, i, i, i, i, vp]
+    lib.ivc_motion_search_tile.restype = i
+    return lib
+
+
+def _check_planes(device, **planes: torch.Tensor):
+    for name, t in planes.items():
+        if t.dtype != torch.float32:
+            raise ValueError(f"{name} must be float32, got {t.dtype}")
+        if t.dim() != 2 or not t.is_contiguous():
+            raise ValueError(f"{name} must be a contiguous 2-D tensor")
+        if not (t.is_cuda and t.device == device):
+            raise ValueError(f"needs every plane on one CUDA device, got {name} on {t.device}")
+
+
+def _check_search_range(search_range) -> int:
+    sr = int(search_range)
+    if not 1 <= sr <= 7:
+        raise ValueError(f"search_range {sr} outside [1, 7]")
+    return sr
 
 
 def motion_search_cuda(ref_image: torch.Tensor, image: torch.Tensor,
@@ -82,26 +123,17 @@ def motion_search_cuda(ref_image: torch.Tensor, image: torch.Tensor,
     on a launch error. Runs on the current stream without synchronising.
     """
     global LAUNCHES
-    for name, t in (("ref_image", ref_image), ("image", image)):
-        if t.dtype != torch.float32:
-            raise ValueError(f"{name} must be float32, got {t.dtype}")
-        if t.dim() != 2 or not t.is_contiguous():
-            raise ValueError(f"{name} must be a contiguous 2-D tensor")
     if ref_image.shape != image.shape:
         raise ValueError("ref_image and image must have the same shape")
     H, W = image.shape
     if H == 0 or W == 0 or H % 8 or W % 8:
         raise ValueError(f"frame {H}x{W} is not a nonzero multiple of 8")
-    sr = int(search_range)
-    if not 1 <= sr <= 7:
-        raise ValueError(f"search_range {sr} outside [1, 7]")
-    if not (image.is_cuda and ref_image.device == image.device):
-        raise ValueError(f"needs both frames on one CUDA device, got "
-                         f"{ref_image.device} and {image.device}")
+    sr = _check_search_range(search_range)
+    _check_planes(image.device, ref_image=ref_image, image=image)
     out = torch.empty((H // 8, W // 8), dtype=torch.int32, device=image.device)
     stream = torch.cuda.current_stream(image.device).cuda_stream
-    rc = _kernel_fn()(ref_image.data_ptr(), image.data_ptr(), out.data_ptr(),
-                      H, W, sr, 0, H, stream)
+    rc = _lib().ivc_motion_search(ref_image.data_ptr(), image.data_ptr(), out.data_ptr(),
+                                  H, W, sr, stream)
     if rc != 0:
         raise RuntimeError(f"motion_search kernel launch failed (cudaError {rc})")
     LAUNCHES += 1
@@ -118,6 +150,48 @@ def motion_search(ref_image: torch.Tensor, image: torch.Tensor,
     if image.is_cuda or ref_image.is_cuda:
         return motion_search_cuda(ref_image, image, search_range)
     return motion_search_reference(ref_image, image, search_range)
+
+
+def motion_search_tile_cuda(ref_ext: torch.Tensor, cur_tile: torch.Tensor, row0: int,
+                            total_h: int, search_range: int = 4) -> torch.Tensor:
+    """Launch the Hopper kernel's band entry point on one halo-extended band.
+
+    Takes contiguous float32 CUDA tensors on one device: ``ref_ext``
+    ``[Ht + 2 sr, W]`` and ``cur_tile`` ``[Ht, W]``. The kernel's entry
+    point checks the rest (Ht and W multiples of 8, ``ref_ext``'s row
+    count, ``row0 >= 0``, ``row0 % 8 == 0``, ``row0 + Ht <= total_h``) and
+    returns an error code, on which this raises, as on a launch error. Runs
+    on the current stream without synchronising.
+    """
+    global TILE_LAUNCHES
+    sr = _check_search_range(search_range)
+    _check_planes(cur_tile.device, ref_ext=ref_ext, cur_tile=cur_tile)
+    if ref_ext.shape[1] != cur_tile.shape[1]:
+        raise ValueError("ref_ext and cur_tile must have the same width")
+    Ht, W = cur_tile.shape
+    out = torch.empty((Ht // 8, W // 8), dtype=torch.int32, device=cur_tile.device)
+    stream = torch.cuda.current_stream(cur_tile.device).cuda_stream
+    rc = _lib().ivc_motion_search_tile(ref_ext.data_ptr(), ref_ext.shape[0], cur_tile.data_ptr(),
+                                       out.data_ptr(), Ht, W, sr, int(row0), int(total_h), stream)
+    if rc != 0:
+        raise RuntimeError(f"motion_search_tile kernel refused or failed (cudaError {rc}): "
+                           f"band {Ht}x{W} with {ref_ext.shape[0]} reference rows, "
+                           f"row0={row0}, total_h={total_h}, sr={sr}")
+    TILE_LAUNCHES += 1
+    return out
+
+
+def motion_search_tile(ref_ext: torch.Tensor, cur_tile: torch.Tensor, row0: int,
+                       total_h: int, search_range: int = 4) -> torch.Tensor:
+    """Band search -> ``[Ht/8, W/8]`` int32 indices, equal to the rows of the
+    whole-frame search that the band covers.
+
+    CPU tensors run :func:`motion_search_tile_reference`; CUDA tensors run
+    the kernel through :func:`motion_search_tile_cuda`.
+    """
+    if cur_tile.is_cuda or ref_ext.is_cuda:
+        return motion_search_tile_cuda(ref_ext, cur_tile, row0, total_h, search_range)
+    return motion_search_tile_reference(ref_ext, cur_tile, row0, total_h, search_range)
 
 
 def motion_compensate(ref_image: torch.Tensor, motion_idx: torch.Tensor,

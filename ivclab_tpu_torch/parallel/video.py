@@ -1,0 +1,311 @@
+"""GOP × tile sharded video coding with distributed entropy packing.
+
+Port of the fixed-codebook paths of ``ivclab_tpu/parallel/video.py``:
+
+- the frame stack is split ``(gop, tile)``: independent GOPs across the
+  ``gop`` axis (each opens with an I-frame, so the reconstruction
+  recursion stays inside a shard), row bands across the ``tile`` axis;
+- each shard runs the I/P recursion on its band; before each P-frame the
+  reconstructed reference's halo rows come from the neighbouring bands
+  (:func:`~ivclab_tpu_torch.parallel.halo.exchange_row_halo`), then the
+  band motion search runs locally (the Hopper kernel on CUDA tensors);
+- :func:`build_sharded_video_codec` also zero-run codes and Huffman-packs
+  every shard's own blocks; the gathered group substreams concatenate
+  band-major per frame, which is raster block order, so the streams equal
+  ``FusedVideoCodec.pack_gop``'s on the same frames word for word, and
+  :func:`assemble_video_payloads` turns them into IVC1 bytes.
+
+The JAX ``shard_map`` becomes a loop over the shards this process holds
+(all of them in-process, one per rank in distributed mode); ``psum`` over
+``tile`` becomes an in-process sum or an ``all_reduce`` over the GOP's tile
+group, and the ``out_specs`` gather a concatenation or an ``all_gather``.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import numpy as np
+import torch
+import torch.distributed as dist
+
+from ivclab_tpu_torch.models.fastvideo import EOB, PackedGop, _map_gop_hot, _symbolize
+from ivclab_tpu_torch.ops.motion import BLOCK
+from ivclab_tpu_torch.ops.quant import quant_table_zigzag
+from ivclab_tpu_torch.ops.transform import PACK_GROUP, pack_grouped_sized
+from ivclab_tpu_torch.ops.zerorun import BLOCK_CAP, zerorun_encode_blocks_dense
+from ivclab_tpu_torch.parallel.halo import (
+    exchange_row_halo,
+    motion_compensate_tile,
+    motion_search_tile,
+)
+from ivclab_tpu_torch.parallel.mesh import Mesh
+
+
+def shard_frames(frames_y, mesh: Mesh) -> dict:
+    """Cut a ``[T, H, W]`` stack into this process's shards.
+
+    T splits over ``gop`` (gop-major) and H over ``tile``. Returns
+    ``{(g, i): [T / n_gop, H / n_tile, W] float32}`` on the mesh's device:
+    every shard in-process, this rank's one in distributed mode.
+    """
+    if isinstance(frames_y, torch.Tensor):
+        x = frames_y.to(device=mesh.device, dtype=torch.float32)
+    else:
+        x = torch.from_numpy(np.asarray(frames_y, dtype=np.float32)).to(mesh.device)
+    T, H, W = x.shape
+    if T % mesh.n_gop or H % mesh.n_tile:
+        raise ValueError(f"[{T}, {H}, {W}] frames do not split over a "
+                         f"{mesh.n_gop}x{mesh.n_tile} mesh")
+    gl, bh = T // mesh.n_gop, H // mesh.n_tile
+    return {(g, i): x[g * gl:(g + 1) * gl, i * bh:(i + 1) * bh].contiguous()
+            for g, i in mesh.local_shards()}
+
+
+def _check_shards(shards: dict, mesh: Mesh, gop_len: int, band_h: int, width: int):
+    if sorted(shards) != sorted(mesh.local_shards()):
+        raise ValueError(f"shards {sorted(shards)} are not this process's "
+                         f"{mesh.local_shards()}")
+    for key, x in shards.items():
+        if tuple(x.shape) != (gop_len, band_h, width):
+            raise ValueError(f"shard {key} is {tuple(x.shape)}, "
+                             f"expected {(gop_len, band_h, width)}")
+
+
+def _band_recursion(shards: dict, mesh: Mesh, total_h: int, sr: int, qt, inv_qt) -> dict:
+    """The I/P recursion of every local shard, frame by frame in lockstep
+    across the tiles of each GOP (the halo exchange needs the neighbours'
+    previous reconstructions).
+
+    Motion search and compensation run per band. The transform runs once
+    per frame over the concatenated local bands, which in-process is the
+    whole frame: the same ``[N, 64]`` product the fused codec computes, so
+    a GEMM that picks its kernel by row count cannot round the bands
+    differently from the whole frame.
+
+    Returns ``{(g, i): (qsyms [T, Nb, 64], mvs [T, hb, wb], recons [T, Ht, W])}``.
+    """
+    out = {}
+    for g in sorted({g for g, _ in shards}):
+        tiles = sorted(i for gg, i in shards if gg == g)
+        frames = [shards[(g, i)] for i in tiles]
+        gop_len, band_h, W = frames[0].shape
+        n = len(tiles)
+        center = torch.full((band_h // BLOCK, W // BLOCK), sr * (2 * sr + 1) + sr,
+                            dtype=torch.int32, device=frames[0].device)
+        qsyms, mvs, recons = [], [], []
+        recon = None
+        for t in range(gop_len):
+            if t == 0:
+                mv = [center] * n
+                planes = [f[0] for f in frames]
+            else:
+                exts = exchange_row_halo(recon, sr, mesh)
+                mv = [motion_search_tile(exts[k], frames[k][t], i * band_h, total_h, sr)
+                      for k, i in enumerate(tiles)]
+                pred = [motion_compensate_tile(exts[k], mv[k], sr) for k in range(n)]
+                planes = [frames[k][t] - pred[k] for k in range(n)]
+            qsym, rrec = _symbolize(torch.cat(planes), qt, inv_qt)
+            rrec = rrec.split(band_h)
+            recon = list(rrec) if t == 0 else [pred[k] + rrec[k] for k in range(n)]
+            qsyms.append(qsym.reshape(n, -1, 64))
+            mvs.append(torch.stack(mv))
+            recons.append(torch.stack(recon))
+        qsyms, mvs, recons = (torch.stack(x, dim=1) for x in (qsyms, mvs, recons))
+        for k, i in enumerate(tiles):
+            out[(g, i)] = (qsyms[k], mvs[k], recons[k])
+    return out
+
+
+def _tile_psum(mesh: Mesh, local: dict) -> dict:
+    """Sum each GOP's per-tile values over its tiles; every shard of the GOP
+    gets the sum (JAX ``psum`` over ``tile``)."""
+    if not mesh.distributed:
+        sums = {g: sum(v for (gg, _), v in local.items() if gg == g) for g, _ in local}
+        return {(g, i): sums[g] for g, i in local}
+    ((g, i), v), = local.items()
+    v = v.clone()
+    dist.all_reduce(v, group=mesh.tile_groups[g])
+    return {(g, i): v}
+
+
+def _all_shards(mesh: Mesh, local: dict) -> dict:
+    """``{(g, i): tensor}`` for every shard of the mesh (all-gather in
+    distributed mode; every shard's tensor has the same shape)."""
+    if not mesh.distributed:
+        return local
+    (_, v), = local.items()
+    v = v.contiguous()
+    parts = [torch.empty_like(v) for _ in range(mesh.n_gop * mesh.n_tile)]
+    dist.all_gather(parts, v)
+    return {divmod(r, mesh.n_tile): p for r, p in enumerate(parts)}
+
+
+def _band_major(mesh: Mesh, shards: dict) -> torch.Tensor:
+    """Global ``[n_gop * gop_len, n_tile * band, ...]`` from per-shard
+    ``[gop_len, band, ...]``: gop-major on axis 0, band-major on axis 1."""
+    return torch.cat([torch.cat([shards[(g, i)] for i in range(mesh.n_tile)], dim=1)
+                      for g in range(mesh.n_gop)])
+
+
+def _per_gop(mesh: Mesh, shards: dict) -> torch.Tensor:
+    """Global ``[n_gop * gop_len, ...]`` from tile-replicated per-shard values."""
+    return torch.cat([shards[(g, 0)] for g in range(mesh.n_gop)])
+
+
+def build_sharded_video_encoder(mesh: Mesh, gop_len: int, band_h: int, width: int,
+                                quantization_scale: float = 1.0, search_range: int = 4,
+                                residual_code=None, mv_code=None):
+    """A GOP+tile-sharded encode step that reports the rate without packing.
+
+    Returns ``step(shards) -> (recons [T, H, W], bits [T])`` over the
+    output of :func:`shard_frames` for ``[n_gop * gop_len, band_h * n_tile,
+    width]`` frames. The codebooks are fixed (``residual_code`` and
+    ``mv_code`` give ``.lengths`` over the alphabet and the residual code's
+    ``.lower_bound``); without them the rate uses the JAX package's proxy,
+    6 bits per residual symbol and 7 per motion index.
+    """
+    dev = mesh.device
+    H = band_h * mesh.n_tile
+    sr = search_range
+    qt_np = quant_table_zigzag(quantization_scale, 1)[0]
+    qt = torch.from_numpy(qt_np).to(dev)
+    inv_qt = torch.from_numpy((1.0 / qt_np).astype(np.float32)).to(dev)
+    if residual_code is not None:
+        enc_lens = torch.as_tensor(np.asarray(residual_code.lengths, np.int32), device=dev)
+        lower = int(residual_code.lower_bound)
+    else:
+        enc_lens = torch.full((5120,), 6, dtype=torch.int32, device=dev)
+        lower = -1024
+    n_mv = (2 * sr + 1) ** 2
+    if mv_code is not None:
+        mv_lens = torch.as_tensor(np.asarray(mv_code.lengths, np.int32), device=dev)
+    else:
+        mv_lens = torch.full((n_mv,), 7, dtype=torch.int32, device=dev)
+
+    def step(shards: dict):
+        _check_shards(shards, mesh, gop_len, band_h, width)
+        enc = _band_recursion(shards, mesh, H, sr, qt, inv_qt)
+        bits, recons = {}, {}
+        for key, (qsyms, mvs, rec) in enc.items():
+            buf, valid = zerorun_encode_blocks_dense(qsyms.reshape(-1, 64), 64, EOB, BLOCK_CAP)
+            mask = torch.arange(BLOCK_CAP, device=dev)[None, :] < valid[:, None]
+            idx = (buf - lower).clamp(0, enc_lens.shape[0] - 1).long()
+            rbits = torch.where(mask, enc_lens[idx], 0).reshape(gop_len, -1).sum(
+                dim=1, dtype=torch.int32)
+            mvb = mv_lens[mvs.clamp(0, mv_lens.shape[0] - 1).long()].reshape(gop_len, -1).sum(
+                dim=1, dtype=torch.int32)
+            mvb[0] = 0  # the I-frame codes no motion
+            bits[key] = rbits + mvb
+            recons[key] = rec
+        bits = _tile_psum(mesh, bits)
+        return (_band_major(mesh, _all_shards(mesh, recons)),
+                _per_gop(mesh, _all_shards(mesh, bits)))
+
+    return step
+
+
+class ShardedGopStreams(NamedTuple):
+    """Gathered outputs of one sharded encode+pack step.
+
+    Frames are gop-major on the T axis; within a frame, blocks and groups
+    are band-major, which is raster order, so every field equals the
+    single-device ``FusedVideoCodec`` output on the same frames.
+    """
+
+    words: torch.Tensor       # [T, G, GW] int64 32-bit group substream words
+    offsets: torch.Tensor     # [T, N] frame-relative block bit offsets
+    counts: torch.Tensor      # [T, N] per-block symbol counts
+    group_bits: torch.Tensor  # [T, G] exact per-group payload bits
+    totals: torch.Tensor      # [T] per-frame residual bits (summed over tiles)
+    mvs: torch.Tensor         # [T, H/8, W/8] packed motion indices
+    recons: torch.Tensor      # [T, H, W] closed-loop reconstructions
+
+
+def build_sharded_video_codec(mesh: Mesh, codec, gop_len: int, band_h: int, width: int,
+                              cap: int, group_words: int, block_words: int):
+    """A GOP+tile-sharded encode **and entropy-pack** step.
+
+    Each (gop, tile) shard runs the I/P recursion on its band with halo
+    motion search, then zero-run codes and hot/escape Huffman-packs its own
+    blocks into word-aligned group substreams and rebases its block bit
+    offsets by its tile's group prefix (``tile * Gb * GW * 32``), so the
+    gathered offsets index the global frame stream.
+
+    ``codec`` is a trained :class:`~ivclab_tpu_torch.models.fastvideo.FusedVideoCodec`;
+    ``cap``/``group_words``/``block_words`` are the pack's size buckets and
+    must be the fused codec's (``codec._buckets`` after a ``pack_gop``) for
+    identical streams. Returns ``step(shards) -> ShardedGopStreams`` over
+    the output of :func:`shard_frames` for ``[n_gop * gop_len, band_h *
+    n_tile, width]`` frames.
+    """
+    dev = mesh.device
+    H, W = band_h * mesh.n_tile, width
+    Nb = (band_h // BLOCK) * (W // BLOCK)
+    if band_h % BLOCK or W % BLOCK or Nb % PACK_GROUP:
+        raise ValueError(f"band {band_h}x{W}: blocks ({Nb}) must be a multiple of "
+                         f"PACK_GROUP ({PACK_GROUP})")
+    Gb = Nb // PACK_GROUP
+    sr = codec.sr
+    code = codec.residual_code
+    qt, inv_qt = codec.qt.to(dev), codec.inv_qt.to(dev)
+    hv, hf, esc_code, esc_len = codec._enc
+    hv, hf = hv.to(dev), hf.to(dev)
+    group_span = Gb * group_words * 32  # bits of one band's groups in a frame
+    # shard-local group index (t*Gb + g) -> frame-relative global group
+    # index (tile*Gb + g): subtract each frame's local base, add the tile's
+    local_base = torch.arange(gop_len, dtype=torch.int32, device=dev)[:, None] * group_span
+
+    def step(shards: dict) -> ShardedGopStreams:
+        _check_shards(shards, mesh, gop_len, band_h, width)
+        enc = _band_recursion(shards, mesh, H, sr, qt, inv_qt)
+        fields = {name: {} for name in ShardedGopStreams._fields if name != "totals"}
+        frame_bits = {}
+        for (g, i), (qsyms, mvs, recons) in enc.items():
+            codes, lens, valid, *_ = _map_gop_hot(qsyms, hv, hf, esc_code, esc_len,
+                                                  code.lower_bound, cap, code.raw_bits)
+            words, gbits, offs = pack_grouped_sized(codes, lens, group_words, block_words)
+            gbits = gbits.reshape(gop_len, Gb)
+            shard = {
+                "words": words.reshape(gop_len, Gb, group_words),
+                "offsets": offs.reshape(gop_len, Nb) - local_base + i * group_span,
+                "counts": valid.reshape(gop_len, Nb),
+                "group_bits": gbits,
+                "mvs": mvs,
+                "recons": recons,
+            }
+            for name, v in shard.items():
+                fields[name][(g, i)] = v
+            frame_bits[(g, i)] = gbits.sum(dim=1, dtype=torch.int32)
+        out = {name: _band_major(mesh, _all_shards(mesh, v)) for name, v in fields.items()}
+        out["totals"] = _per_gop(mesh, _all_shards(mesh, _tile_psum(mesh, frame_bits)))
+        return ShardedGopStreams(**out)
+
+    return step
+
+
+def assemble_video_payloads(codec, streams: ShardedGopStreams, gop_len: int) -> list:
+    """Bitstream assembly: gathered shard streams -> one IVC1 payload per GOP.
+
+    Each GOP's slice of the streams goes through the same
+    ``container_from_packed`` writer as the single-device encoder, so the
+    bytes are the ones ``FusedVideoCodec`` writes for those frames and
+    decode anywhere via ``FusedVideoCodec.decode_from_container``.
+    """
+    T, H, W = streams.recons.shape
+    payloads = []
+    for g in range(T // gop_len):
+        sl = slice(g * gop_len, (g + 1) * gop_len)
+        counts = streams.counts[sl]
+        p = PackedGop(
+            words=streams.words[sl],
+            totals=streams.totals[sl],
+            offsets=streams.offsets[sl],
+            counts=counts,
+            group_bits=streams.group_bits[sl],
+            block_words=None,  # the decoder recovers it from the sidecar
+            cap=max(int(counts.max()), 1),
+            ok=torch.ones((), dtype=torch.bool),
+        )
+        payloads.append(codec.container_from_packed(p, streams.mvs[sl], (gop_len, H, W)))
+    return payloads

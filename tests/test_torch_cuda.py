@@ -6,9 +6,11 @@ GPU machine, which has no JAX (tests/conftest.py imports it, hence
 
     python3 -m pytest tests/test_torch_cuda.py --noconftest -q
 
-It holds the kernel against its plain PyTorch version on the card and the
-codec's CUDA pack against its CPU pack; the CPU parity with the JAX package
-is in the other tests/test_torch_*.py files.
+It holds the kernel's two entry points (whole frames and halo-extended row
+bands) against their plain PyTorch versions on the card, the codec's CUDA
+pack against its CPU pack, and the sharded codec on the card against the
+fused pack; the CPU parity with the JAX package is in the other
+tests/test_torch_*.py files.
 """
 
 import numpy as np
@@ -19,6 +21,7 @@ from torch_parity import assert_exact, cuda_device, luma, reference_state  # noq
 
 import ivclab_tpu_torch.ops.motion as tmotion
 from ivclab_tpu_torch import FusedVideoCodec
+from ivclab_tpu_torch import parallel as tpar
 from ivclab_tpu_torch.utils import fixtures
 
 
@@ -74,3 +77,73 @@ def test_gop_on_the_card_matches_cpu_bytes(cuda_device):
     rc, okc = c.decode_gop(pc.words, pc.offsets, pc.counts, mvs.cpu(), 128, 256,
                            pc.block_words, pc.cap)
     assert bool(okc) and float((rec.cpu() - rc).abs().max()) < 1e-2
+
+
+def _band(ref, cur, i, band_h, sr):
+    """Band i of [H, W] frames: the reference band with its halo rows cut from
+    the frame (zeros outside it) and the current band."""
+    padded = torch.nn.functional.pad(ref, (0, 0, sr, sr))
+    return (padded[i * band_h:(i + 1) * band_h + 2 * sr].contiguous(),
+            cur[i * band_h:(i + 1) * band_h].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,n_bands", [(1088, 1920, 4), (288, 352, 2), (64, 128, 4)])
+@pytest.mark.parametrize("sr", [2, 4, 7])
+def test_band_kernel_matches_plain_at_every_band(cuda_device, H, W, n_bands, sr):
+    """Integer-valued frames: each band equals the plain band search, and the
+    bands together equal the whole-frame kernel."""
+    rng = np.random.default_rng(H + W + sr)
+    ref = rng.integers(0, 256, (H, W)).astype(np.float32)
+    cur = (np.roll(ref, (3, -2), (0, 1)) + rng.integers(-3, 4, (H, W))).astype(np.float32)
+    R = torch.from_numpy(ref).to(cuda_device)
+    C = torch.from_numpy(cur).to(cuda_device)
+    band_h = H // n_bands
+    got = []
+    for i in range(n_bands):
+        ext, band = _band(R, C, i, band_h, sr)
+        before = tmotion.TILE_LAUNCHES
+        a = tmotion.motion_search_tile(ext, band, i * band_h, H, sr)
+        torch.cuda.synchronize()
+        assert tmotion.TILE_LAUNCHES == before + 1
+        assert_exact(a, tmotion.motion_search_tile_reference(ext, band, i * band_h, H, sr),
+                     f"band {i}")
+        got.append(a)
+    assert_exact(torch.cat(got), tmotion.motion_search_cuda(R, C, sr), "bands vs whole frame")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("row0,ext_rows,total_h", [(4, 24, 64), (56, 24, 64), (0, 26, 64),
+                                                   (-8, 24, 64)])
+def test_band_kernel_refuses_bad_windows(cuda_device, row0, ext_rows, total_h):
+    ext = torch.zeros((ext_rows, 32), device=cuda_device)
+    band = torch.zeros((16, 32), device=cuda_device)
+    before = tmotion.TILE_LAUNCHES
+    with pytest.raises(RuntimeError):
+        tmotion.motion_search_tile_cuda(ext, band, row0, total_h, 4)
+    assert tmotion.TILE_LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_sharded_codec_on_the_card_matches_the_fused_pack(cuda_device):
+    seq = luma(fixtures.video("bench", 4, (128, 256)))
+    codec = FusedVideoCodec(1.0, device=cuda_device).train(seq[:2])
+    fused = []
+    for g in range(2):
+        qsyms, mvs, _, recons = codec.encode_gop(seq[g * 2:(g + 1) * 2])
+        fused.append((codec.pack_gop(qsyms), mvs, recons))
+    cap, bw, gw = codec._buckets
+    mesh = tpar.make_mesh(2, 2, device=cuda_device)
+    before = tmotion.TILE_LAUNCHES
+    out = tpar.build_sharded_video_codec(mesh, codec, 2, 64, 256, cap, gw, bw)(
+        tpar.shard_frames(seq, mesh))
+    torch.cuda.synchronize()
+    assert tmotion.TILE_LAUNCHES - before == 2 * 1 * 2  # GOPs x P-frames x bands
+    blobs = tpar.assemble_video_payloads(codec, out, 2)
+    for g, (p, mvs, recons) in enumerate(fused):
+        sl = slice(g * 2, (g + 1) * 2)
+        for field in ("words", "offsets", "counts", "group_bits", "totals"):
+            assert_exact(getattr(out, field)[sl], getattr(p, field), field)
+        assert_exact(out.mvs[sl], mvs, "mvs")
+        assert torch.equal(out.recons[sl], recons)
+        assert blobs[g] == codec.container_from_packed(p, mvs, (2, 128, 256))

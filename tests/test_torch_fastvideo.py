@@ -161,7 +161,7 @@ def test_state_round_trip_keeps_the_codec():
 
 def test_import_leaves_jax_out():
     code = (
-        "import sys, ivclab_tpu_torch\n"
+        "import sys, ivclab_tpu_torch, ivclab_tpu_torch.parallel\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in "
         "('jax', 'jaxlib', 'ivclab_tpu', 'triton')]\n"
         "assert not bad, bad\n"

@@ -7,12 +7,61 @@ must be equal exactly; each float comparison states its tolerance.
 
 from __future__ import annotations
 
+import fcntl
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
 import numpy as np
 import pytest
 import torch
 
 # tier-1 runs several pytest-xdist workers on one host
 torch.set_num_threads(1)
+
+_NATIVE = Path(__file__).resolve().parents[1] / "ivclab_tpu" / "runtime" / "native"
+
+
+def prebuild_reference_native(src: Path = _NATIVE / "entropy.cpp",
+                              build_dir: Path = _NATIVE / "_build") -> Path | None:
+    """Build the JAX package's C++ entropy engine where its loader looks for it.
+
+    ``ivclab_tpu/runtime/native.py`` compiles ``entropy.cpp`` on first use
+    into ``_build/libivclab_native_<sha256(src)[:16]>.so`` through one
+    shared temporary name, so pytest-xdist workers that reach it together
+    on an empty ``_build/`` clobber each other's half-written library and
+    fall back to "engine unavailable". Every worker imports this module
+    while it collects, before any test runs: building here, one process at
+    a time under an exclusive lock, leaves the library in place for the
+    loader. Imports nothing of ``ivclab_tpu`` (which imports JAX). Does
+    nothing when the library exists, the source is absent or there is no
+    ``g++``; returns the library's path, or None when there is none.
+    """
+    if not src.is_file():
+        return None
+    out = build_dir / f"libivclab_native_{hashlib.sha256(src.read_bytes()).hexdigest()[:16]}.so"
+    if out.exists():
+        return out
+    if shutil.which("g++") is None:
+        return None
+    build_dir.mkdir(parents=True, exist_ok=True)
+    with open(build_dir / "prebuild.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not out.exists():  # another process may have built it meanwhile
+            tmp = build_dir / f"{out.name}.{os.getpid()}.tmp"
+            cmd = ["g++", "-O3", "-std=c++17", "-shared", "-fPIC", "-o", str(tmp), str(src)]
+            try:
+                subprocess.run(cmd, check=True, capture_output=True, timeout=300)
+                os.replace(tmp, out)
+            except (subprocess.SubprocessError, OSError):
+                tmp.unlink(missing_ok=True)
+                return None
+    return out
+
+
+prebuild_reference_native()
 
 # Float tolerances, with their reasons.
 # DCT/IDCT: one float32 [N,64]x[64,64] product; the two libraries may sum
