@@ -33,7 +33,19 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    of each GOP word for word; the assembled IVC1 bytes equal
    ``container_from_packed``'s and decode within 1e-2; counts the band
    kernel's launches over that run and times the sharded step against the
-   fused encode+pack.
+   fused encode+pack;
+7. the intra codec at full width on CUDA (it runs no hand-written kernel;
+   its stages are plain PyTorch and the C++ entropy engine, which must be
+   built): (a) the ch3 point, trained on lena_small and coding lena at
+   q=0.15, within the JAX golden bounds and at the CPU port's bpp; (b) lena
+   tiled to 1088x1920 RGB at q=1.0, trained on itself: container bytes equal
+   the CPU port's (or every differing symbol is a printed rounding tie), the
+   CUDA decode within 1e-2 of ``encode_decode``, the CPU decode of the CUDA
+   bytes within 1e-2 of the CUDA decode, and ``verify_entropy`` passing;
+   (c) a 2048x1536 grayscale container round trip at q=2.0 above 25 dB;
+   (d) the C++ engine packs (b)'s symbol stream into the device packer's
+   words and decodes them back; (e) times each intra entry point on (b),
+   and the host's pmf and Huffman tree inside its codebook training.
 
 The line before the last is a JSON list of the kernels with their launch
 counts and times; the last line is ``{"ok": true, "device": {...}}``.
@@ -121,6 +133,206 @@ def codec_state(codec) -> dict:
         "mv_code": parts(codec.mv_code),
         "buckets": codec._buckets,
     }
+
+
+def median_ms(fn, reps: int) -> float:
+    """Median of ``reps`` synchronised wall times of ``fn`` after one warm-up."""
+    import numpy as np
+    import torch
+
+    times = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        if i:
+            times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+TIE_TOL = 1e-3  # a scaled coefficient this close to k + 1/2 may round either way
+
+
+def rounding_ties(x_gpu, x_cpu, codec_gpu, codec_cpu):
+    """Quantized symbols that differ between the two devices, each with its
+    scaled coefficient on both and in float64, and its distance from k+1/2."""
+    import numpy as np
+    import torch
+
+    from ivclab_tpu_torch.ops.dct import dct2_fused, dct2_kron_matrix
+    from ivclab_tpu_torch.ops.transform import blocks_from_plane
+
+    C = x_cpu.shape[2]
+    _, _, q_gpu = codec_gpu._symbolize(x_gpu)
+    _, _, q_cpu = codec_cpu._symbolize(x_cpu)
+    diff = torch.nonzero(q_gpu.cpu() != q_cpu).tolist()
+    if not diff:
+        return []
+    inv = codec_cpu._tables(C)[1].numpy()  # [C, 64] float32
+    flat_cpu = blocks_from_plane(x_cpu)
+    coeff_cpu = dct2_fused(flat_cpu)
+    coeff_gpu = dct2_fused(blocks_from_plane(x_gpu)).cpu()
+    K = dct2_kron_matrix(8, zigzag=True)
+    out = []
+    for n, k in diff:
+        c = n % C
+        s64 = float(K[k] @ flat_cpu[n].numpy().astype(np.float64)) * float(inv[c, k])
+        s_cpu = float(np.float32(coeff_cpu[n, k].item()) * inv[c, k])
+        s_gpu = float(np.float32(coeff_gpu[n, k].item()) * inv[c, k])
+        dist = abs(s64 - (np.floor(s64) + 0.5))
+        out.append((n, k, int(q_gpu[n, k]), int(q_cpu[n, k]), s_gpu, s_cpu, s64, dist))
+    return out
+
+
+INTRA_REPS = 5  # timed runs per intra stage, after one warm-up
+
+
+def intra_phase(dev, card: str) -> None:
+    """Phase 7: the intra codec at full width on CUDA (see the module doc)."""
+    import numpy as np
+    import torch
+
+    from ivclab_tpu_torch import HuffmanCoder, IntraCodec, calc_psnr
+    from ivclab_tpu_torch.entropy.codebook import (
+        BUILD_MAX_LEN,
+        huffman_code_lengths,
+        limit_code_lengths,
+    )
+    from ivclab_tpu_torch.entropy.stats import pmf_from_histogram
+    from ivclab_tpu_torch.models.intracodec import reference_state
+    from ivclab_tpu_torch.ops.transform import symbol_histogram
+    from ivclab_tpu_torch.runtime import native
+    from ivclab_tpu_torch.utils import fixtures
+
+    t0 = time.perf_counter()
+    lib = native.get_lib()
+    check(lib is not None, f"C++ entropy engine unavailable: {native.unavailable_reason()}")
+    print(f"[intra] C++ entropy engine {lib._name} from ivclab_tpu_torch/csrc/entropy.cpp, "
+          f"loaded in {time.perf_counter() - t0:.2f} s")
+    lena_small, lena = fixtures.image("lena_small"), fixtures.image("lena")
+
+    # (a) the canonical ch3 point
+    ga = IntraCodec(0.15, device=dev)
+    ga.train_huffman_from_image(lena_small)
+    rec_a, _, _, bpp_a = ga.encode_decode(lena, return_bpp=True)
+    check(rec_a.is_cuda and tuple(rec_a.shape) == lena.shape, "ch3 recon not on the card")
+    psnr_a = float(calc_psnr(lena, rec_a))
+    ca = IntraCodec(0.15, device="cpu")
+    ca.train_huffman_from_image(lena_small)
+    _, _, _, bpp_cpu = ca.encode_decode(lena, return_bpp=True)
+    print(f"[intra] (a) train lena_small, code lena 512x512 q=0.15: PSNR {psnr_a:.4f} dB, "
+          f"{bpp_a!r} bpp (CPU port {bpp_cpu!r} bpp; JAX golden 38.93 +/- 0.3 dB, "
+          f"4.518 +/- 0.15 bpp)")
+    check(abs(psnr_a - 38.93) < 0.3, f"ch3 PSNR {psnr_a} outside 38.93 +/- 0.3")
+    check(abs(bpp_a - 4.518) < 0.15, f"ch3 bpp {bpp_a} outside 4.518 +/- 0.15")
+    check(bpp_a == bpp_cpu, f"ch3 bpp on CUDA {bpp_a} != CPU {bpp_cpu}")
+
+    # (b) 1088x1920 RGB at q=1.0, trained on itself
+    H, W = 1088, 1920
+    hd = np.ascontiguousarray(np.tile(lena, (3, 4, 1))[:H, :W])
+    g = IntraCodec(1.0, device=dev)
+    g.train_huffman_from_image(hd)
+    c = IntraCodec.from_reference_state(reference_state(g), device="cpu")
+    blob = g.encode_to_container(hd)
+    blob_cpu = c.encode_to_container(hd)
+    print(f"[intra] (b) {W}x{H} RGB q=1.0: CUDA {len(blob)} container bytes, CPU "
+          f"{len(blob_cpu)}, identical {blob == blob_cpu}")
+    if blob != blob_cpu:
+        ties = rounding_ties(g._prepare(hd, True)[0], c._prepare(hd, True)[0], g, c)
+        for n, k, qg, qc, s_gpu, s_cpu, s64, dist in ties:
+            print(f"[intra] symbol differs: block {n} coefficient {k}: CUDA {qg} (scaled "
+                  f"{s_gpu!r}), CPU {qc} (scaled {s_cpu!r}), float64 {s64!r}, "
+                  f"{dist:.3e} from k+1/2")
+        check(ties and all(t[-1] < TIE_TOL for t in ties),
+              "CUDA and CPU intra bytes differ by more than rounding ties")
+    ref, _, bits_b, bpp_b = g.encode_decode(hd, return_bpp=True)
+    rec = IntraCodec.decode_from_container(blob, device=dev)
+    rec_cpu = IntraCodec.decode_from_container(blob, device="cpu")
+    full, _, _ = g.encode_decode(hd, verify_entropy=True)
+    check(rec.is_cuda and tuple(rec.shape) == hd.shape and bool(torch.isfinite(rec).all()),
+          "bad 1080p intra recon")
+    err = float((rec - ref).abs().max())
+    err_cpu = float((rec_cpu - rec.cpu()).abs().max())
+    err_v = float((full - ref).abs().max())
+    psnr_b = float(calc_psnr(hd, rec))
+    print(f"[intra] (b) decode on CUDA vs encode_decode max abs {err:.3e}, CPU decode of the CUDA "
+          f"bytes vs CUDA decode {err_cpu:.3e}, verify_entropy vs direct {err_v:.3e}; "
+          f"PSNR {psnr_b:.4f} dB, {bpp_b!r} bpp, {bits_b} payload bits, {len(blob)} bytes")
+    check(err < 1e-2, f"1080p container decode mismatch {err}")
+    check(err_cpu < 1e-2, f"CPU decode of CUDA bytes mismatch {err_cpu}")
+    check(err_v < 1e-2, f"verify_entropy mismatch {err_v}")
+
+    # (c) 2048x1536 grayscale at q=2.0
+    gray = np.ascontiguousarray(np.tile(lena.mean(axis=-1).astype(np.uint8), (4, 3))[:2048, :1536])
+    g2 = IntraCodec(2.0, device=dev)
+    g2.train_huffman_from_image(gray, is_source_rgb=False)
+    blob2 = g2.encode_to_container(gray, is_source_rgb=False)
+    rec2 = IntraCodec.decode_from_container(blob2, device=dev)
+    psnr_c = float(calc_psnr(gray, rec2))
+    print(f"[intra] (c) 1536x2048 gray q=2.0: {len(blob2)} bytes, container round trip "
+          f"PSNR {psnr_c:.4f} dB")
+    check(rec2.is_cuda and psnr_c > 25.0, f"2048x1536 gray PSNR {psnr_c}")
+
+    # (d) the C++ engine on (b)'s symbol stream
+    stream = g.image2symbols(hd)
+    x, _ = g._prepare(hd, True)
+    dwords, dtotal, _, _, _ = g._encode_device(x)
+    dtotal = int(dtotal)
+    dev_words = dwords[: (dtotal + 31) // 32].cpu().numpy().astype(np.uint32)
+    pack_t, dec_t = [], []
+    for _ in range(INTRA_REPS):
+        t0 = time.perf_counter()
+        words, bits = g.huffman.encode(stream)
+        t1 = time.perf_counter()
+        back = g.huffman.decode(words, stream.size)
+        pack_t.append((t1 - t0) * 1e3)
+        dec_t.append((time.perf_counter() - t1) * 1e3)
+    print(f"[intra] (d) C++ engine on {stream.size} symbols: words equal the device pack "
+          f"{np.array_equal(words, dev_words)} ({bits:.0f} bits vs {dtotal}), decode returns the "
+          f"stream {np.array_equal(back, stream)}; pack {np.median(pack_t):.3f} ms, decode "
+          f"{np.median(dec_t):.3f} ms (median of {INTRA_REPS}, host; {card})")
+    check(np.array_equal(words, dev_words) and int(bits) == dtotal,
+          "C++ pack != device pack_symbols stream")
+    check(np.array_equal(back, stream), "C++ decode did not return the symbol stream")
+
+    # (e) timing of (b)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    stages = {
+        "train_huffman_from_image": lambda: g.train_huffman_from_image(hd),
+        "encode_to_container": lambda: g.encode_to_container(hd),
+        "decode_from_container": lambda: IntraCodec.decode_from_container(blob, device=dev),
+        "encode_decode": lambda: g.encode_decode(hd),
+    }
+    med = {name: median_ms(fn, INTRA_REPS) for name, fn in stages.items()}
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    mpix = H * W / 1e6
+    for name, ms in med.items():
+        print(f"[intra] (e) {W}x{H} RGB q=1.0 {name}: {ms:.3f} ms (warm, synchronised, "
+              f"median of {INTRA_REPS}) = {mpix / ms * 1e3:.3f} Mpix/s ({card})")
+    print(f"[intra] (e) peak device memory over the timed runs: {peak:.1f} MiB "
+          f"(max_memory_allocated; {card})")
+
+    # the host share of train_huffman_from_image: the pmf and the tree
+    buf, valid_len, _ = g._symbolize(x)
+    lo, hi = g.bounds
+    hist = symbol_histogram(buf, valid_len, lo, hi).cpu().numpy()
+    pmf = pmf_from_histogram(hist).astype(np.float64)
+    raw = huffman_code_lengths(pmf)
+    tree = HuffmanCoder(lower_bound=lo).train(pmf)
+    check(np.array_equal(tree.code.lengths, g.huffman.code.lengths),
+          "host tree != the codec's trained codebook")
+    host = {
+        "pmf_from_histogram": lambda: pmf_from_histogram(hist),
+        "HuffmanCoder.train": lambda: HuffmanCoder(lower_bound=lo).train(pmf),
+        "limit_code_lengths": lambda: limit_code_lengths(raw, BUILD_MAX_LEN),
+    }
+    host_ms = {name: median_ms(fn, INTRA_REPS) for name, fn in host.items()}
+    print(f"[intra] (e) host share of train_huffman_from_image, {hist.size}-symbol alphabet, "
+          f"longest unlimited code {int(raw.max())} bits: "
+          + ", ".join(f"{name} {ms:.3f} ms" for name, ms in host_ms.items())
+          + f" (median of {INTRA_REPS}, host; {card})")
 
 
 def main() -> None:
@@ -435,6 +647,9 @@ def main() -> None:
     print(f"[shard] warm ms per GOP pair (median of 5, synchronised): sharded step "
           f"{shard_med['sharded']:.3f}, fused encode+pack {shard_med['fused']:.3f} ({card})")
     print(f"[shard] ms samples: {json.dumps(times)}")
+
+    # --------------------------------- 7. the intra codec at full width
+    intra_phase(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "motion_search",

@@ -1,8 +1,9 @@
 """Canonical, length-limited Huffman codebook construction (host, numpy).
 
 Port of ``ivclab_tpu/entropy/codebook.py``. Table construction is
-O(alphabet) work and stays on the host; the per-symbol work (encode and
-decode) runs on tensors (``ivclab_tpu_torch/ops/bitpack.py``).
+O(alphabet) work and stays on the host (the Huffman depth loop in the C++
+engine, ``runtime/native.py``, where there is a ``g++``); the per-symbol
+work (encode and decode) runs on tensors (``ivclab_tpu_torch/ops/bitpack.py``).
 
 Design:
 - Optimal code lengths via the two-queue Huffman method over sorted
@@ -25,6 +26,8 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
+
+from ivclab_tpu_torch.runtime import native
 
 # format capability: the wire/decoder tables handle lengths up to 32 bits
 MAX_CODE_LEN = 32
@@ -57,8 +60,24 @@ def huffman_code_lengths(freqs: np.ndarray) -> np.ndarray:
     order = np.argsort(freqs, kind="stable")
     leaf_w = freqs[order]
 
-    # parent pointers over 2n-1 nodes: leaves 0..n-1 (in sorted order),
-    # internal nodes n..2n-2
+    # native fast path: the same merge order and tie-breaking in C++ (a
+    # per-frame adaptive encoder builds one tree per frame, putting this
+    # loop on the encode path); the numpy loop runs where there is no g++
+    depths = native.huffman_depths(leaf_w)
+    if depths is None:
+        depths = _huffman_depths_np(leaf_w)
+    lengths = np.empty(n, dtype=np.int32)
+    lengths[order] = depths
+    return lengths
+
+
+def _huffman_depths_np(leaf_w: np.ndarray) -> np.ndarray:
+    """Two-queue depths of ascending-sorted positive leaf weights (n >= 2).
+
+    Leaves 0..n-1 (in sorted order) and internal nodes n..2n-2 get parent
+    pointers; each step merges the two smallest heads, a leaf winning a tie.
+    """
+    n = leaf_w.size
     parent = np.full(2 * n - 1, -1, dtype=np.int64)
     pkg_w = np.empty(n - 1, dtype=np.float64)
     li = 0  # next leaf
@@ -86,10 +105,7 @@ def huffman_code_lengths(freqs: np.ndarray) -> np.ndarray:
     depth = np.zeros(2 * n - 1, dtype=np.int32)
     for node in range(2 * n - 3, -1, -1):
         depth[node] = depth[parent[node]] + 1
-
-    lengths = np.empty(n, dtype=np.int32)
-    lengths[order] = depth[:n]
-    return lengths
+    return depth[:n]
 
 
 def limit_code_lengths(lengths: np.ndarray, max_len: int = MAX_CODE_LEN) -> np.ndarray:

@@ -1,1 +1,8 @@
 """Codecs built from the ops."""
+
+from ivclab_tpu_torch.entropy.huffman import HuffmanCoder
+from ivclab_tpu_torch.models.fastvideo import FusedVideoCodec
+from ivclab_tpu_torch.models.intracodec import IntraCodec, IntraCodecAdaptive
+from ivclab_tpu_torch.utils.metrics import calc_psnr
+
+__all__ = ["FusedVideoCodec", "HuffmanCoder", "IntraCodec", "IntraCodecAdaptive", "calc_psnr"]

@@ -43,8 +43,8 @@ from ivclab_tpu_torch.ops.transform import (
 )
 from ivclab_tpu_torch.ops.zerorun import (
     zerorun_counts,
-    zerorun_decode_blocks_dense,
-    zerorun_encode_blocks_dense,
+    zerorun_decode_blocks,
+    zerorun_encode_blocks,
 )
 from ivclab_tpu_torch.runtime.container import GroupedSection, HotCodebook, VideoPayload
 
@@ -137,7 +137,7 @@ def _map_gop_hot(qsyms, hot_vals, hot_fused, esc_code, esc_len, lower_bound, cap
     """
     T, N, _ = qsyms.shape
     flat = qsyms.reshape(T * N, 64)
-    buf, valid = zerorun_encode_blocks_dense(flat, 64, EOB, cap)
+    buf, valid = zerorun_encode_blocks(flat, 64, EOB, cap)
     codes, lens = map_codes_hot(buf - lower_bound, valid, hot_vals, hot_fused,
                                 esc_code, esc_len, raw_bits)
     bw_max, gw_max = pack_extents(lens)
@@ -160,7 +160,7 @@ def _decode_gop_hot(words, block_offsets, block_counts, mvs, lj, first_code, gro
                                 min_len, esc_rank, cap, raw_bits, max_len)
     in_count = torch.arange(cap, device=dev)[None, :] < cnts[:, None]
     syms = torch.where(in_count, sym_idx + lower_bound, 0)
-    blocks, ok = zerorun_decode_blocks_dense(syms, cnts, 64, EOB)
+    blocks, ok = zerorun_decode_blocks(syms, cnts, 64, EOB)
     deq = (blocks.to(torch.float32) * qt[None, :]).to(torch.int32)
     pix = idct2_fused(deq.to(torch.float32))
     planes = pix.reshape(T, H // 8, W // 8, 8, 8).permute(0, 1, 3, 2, 4).reshape(T, H, W)

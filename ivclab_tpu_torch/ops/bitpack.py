@@ -1,7 +1,10 @@
 """Grouped variable-length bit packing and the block-parallel canonical decoder.
 
-Port of ``ivclab_tpu/ops/bitpack.py`` (``pack_codes_grouped_dense2``,
-``locals_from_groups``, ``decode_blocks_hot``).
+Port of ``ivclab_tpu/ops/bitpack.py``: the flat packer (``symbol_bit_layout``,
+``pack_codes``), the grouped packer (``pack_codes_grouped_dense``, which
+also stands for the JAX package's ``pack_codes_grouped_dense2``), and the
+block-parallel decoders (``decode_blocks_device`` for full canonical codes,
+``locals_from_groups`` + ``decode_blocks_hot`` for hot/escape codes).
 
 Bitstream format: MSB-first within big-endian 32-bit words; bit ``k`` of
 the stream is bit ``31 - (k mod 32)`` of word ``k // 32``. Blocks are
@@ -22,11 +25,127 @@ JAX form adds disjoint bit fields and truncates.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
-from ivclab_tpu_torch.entropy.codebook import MAX_CODE_LEN
+from ivclab_tpu_torch.entropy.codebook import MAX_CODE_LEN, CanonicalCode
 
 MASK32 = 0xFFFFFFFF
+
+
+def symbol_bit_layout(lens: torch.Tensor):
+    """Exclusive prefix sum of code lengths -> (bit_offsets int64, total_bits
+    as a 0-d int64 tensor)."""
+    lens = lens.reshape(-1).to(torch.int64)
+    csum = torch.cumsum(lens, 0)
+    total = csum[-1] if lens.numel() else torch.zeros((), dtype=torch.int64, device=lens.device)
+    return csum - lens, total
+
+
+def pack_codes(codes: torch.Tensor, lens: torch.Tensor, bit_offsets: torch.Tensor,
+               num_words: int) -> torch.Tensor:
+    """Place left-justified codewords into a ``[num_words]`` word stream.
+
+    ``codes``: right-aligned (< 2^32); ``lens``: in [0, 32] (0 = skip, for
+    padded slots); ``bit_offsets``: each code's first bit. Each code splits
+    into at most two words; parts past ``num_words`` are dropped. Returns
+    int64 words masked to 32 bits.
+    """
+    dev = lens.device
+    codes = codes.reshape(-1).to(torch.int64) & MASK32
+    lens = lens.reshape(-1).to(torch.int64)
+    off = bit_offsets.reshape(-1).to(device=dev, dtype=torch.int64)
+
+    lj = torch.where(lens > 0, (codes << ((32 - lens) & 31)) & MASK32, 0)
+    word = off >> 5
+    shift = off & 31
+    part1 = lj >> shift
+    part2 = torch.where(shift == 0, 0, (lj << (32 - shift)) & MASK32)
+    # slot num_words is the trash for parts past the stream; a zero-length
+    # code adds zero at its own position (sending the padded slots, most of
+    # a block buffer, to one trash slot would serialize their atomic adds)
+    w1 = torch.where((word >= 0) & (word < num_words), word, num_words)
+    w2 = torch.where((word + 1 >= 0) & (word + 1 < num_words), word + 1, num_words)
+    words = torch.zeros(num_words + 1, dtype=torch.int64, device=dev)
+    words.scatter_add_(0, w1, part1)
+    words.scatter_add_(0, w2, part2)
+    return words[:num_words] & MASK32
+
+
+def bit_window32(words: torch.Tensor, bitpos: torch.Tensor) -> torch.Tensor:
+    """The 32-bit window starting at each ``bitpos`` of an MSB-first stream.
+
+    Word indices past the stream clamp to its last word, as the JAX
+    gather's do.
+    """
+    n = words.shape[0]
+    w = bitpos >> 5
+    sh = bitpos & 31
+    w1 = words[w.clamp(0, n - 1)]
+    w2 = words[(w + 1).clamp(0, n - 1)]
+    return torch.where(sh == 0, w1, ((w1 << sh) | (w2 >> (32 - sh))) & MASK32)
+
+
+def decode_tables(code: CanonicalCode, device="cpu"):
+    """Decoder tables for :func:`decode_blocks_device`: (lj_next_minus1 [32],
+    first_code [33], group_offset [33], sorted_syms [n]) as int64 tensors on
+    ``device``, then min_len and max_len as ints."""
+    def t(a):
+        return torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)
+
+    return (t(code.lj_next_minus1), t(code.first_code), t(code.group_offset),
+            t(code.sorted_syms), int(code.min_len), max(int(code.max_len), 1))
+
+
+def decode_blocks_device(words: torch.Tensor, block_bit_offsets: torch.Tensor,
+                         block_sym_counts: torch.Tensor, tables, max_syms: int) -> torch.Tensor:
+    """Decode every block in parallel from one packed stream.
+
+    ``block_bit_offsets[b]``: block b's first bit; ``block_sym_counts[b]``:
+    the symbols to decode for it (at most ``max_syms`` are). ``tables``:
+    :func:`decode_tables`. Returns ``[B, max_syms]`` int32 0-based symbol
+    indices, zero past each block's count.
+
+    All blocks advance one symbol per step. A code's length is ``min_len``
+    plus the number of left-justified group boundaries its window exceeds.
+    The JAX form compares every window against all 31 boundaries; here only
+    the first ``max_len`` are compared: boundaries at lengths past the
+    code's longest all equal the one at ``max_len`` (empty groups inherit
+    it), so that one comparison counts ``32 - max_len`` times and the
+    lengths, and the values, are the same for every window.
+    """
+    lj, fc, go, ss, min_len, max_len = tables
+    dev = words.device
+    words = words.reshape(-1).to(torch.int64) & MASK32
+    offs = block_bit_offsets.to(device=dev, dtype=torch.int64)
+    counts = block_sym_counts.to(device=dev, dtype=torch.int64)
+    lj, fc, go, ss = (x.to(dev) for x in (lj, fc, go, ss))
+    lj_head = lj[: max_len - 1]
+    lj_tail = lj[max_len - 1]
+    tail_weight = MAX_CODE_LEN - max_len
+    n_sym = ss.shape[0]
+    B = offs.shape[0]
+
+    out = torch.zeros((B, max_syms), dtype=torch.int32, device=dev)
+    n_steps = min(int(counts.max()), max_syms) if B else 0
+    bitpos = offs
+    for i in range(n_steps):
+        win = bit_window32(words, bitpos)
+        L = min_len + (win[:, None] > lj_head[None, :]).sum(dim=1)
+        if tail_weight:
+            L = L + tail_weight * (win > lj_tail)
+        # u32 shift: amounts past 31 (lengths past 32) give 0
+        code_val = torch.where(L <= 32, win >> (32 - L).clamp(0, 31), 0)
+        Lc = L.clamp(max=MAX_CODE_LEN)  # the JAX gathers clamp their index
+        d = (code_val - fc[Lc]) & MASK32
+        rank = torch.where(d >= 1 << 31, d - (1 << 32), d)  # u32 -> int32
+        idx = go[Lc] + rank
+        idx = ((idx + (1 << 31)) & MASK32) - (1 << 31)  # int32 wrap, as in JAX
+        sym = ss[idx.clamp(0, n_sym - 1)]
+        active = i < counts
+        out[:, i] = torch.where(active, sym, 0).to(torch.int32)
+        bitpos = torch.where(active, bitpos + L, bitpos)
+    return out
 
 
 def _next_pow2(n: int) -> int:
@@ -36,8 +155,8 @@ def _next_pow2(n: int) -> int:
     return p
 
 
-def pack_codes_grouped_dense2(codes: torch.Tensor, lens: torch.Tensor, group_size: int,
-                              words_per_group: int, block_words: int):
+def pack_codes_grouped_dense(codes: torch.Tensor, lens: torch.Tensor, group_size: int = 16,
+                             words_per_group: int = 1600, block_words: int = 128):
     """Pack per-block codewords into word-aligned group substreams.
 
     codes/lens: ``[N, S]`` right-aligned codes (< 2^32) and lengths
@@ -45,7 +164,11 @@ def pack_codes_grouped_dense2(codes: torch.Tensor, lens: torch.Tensor, group_siz
     packed into a private ``block_words``-word buffer, then placed at its
     in-group bit offset. Returns (group_words ``[G, words_per_group]`` int64,
     group_bits ``[G]`` int32, block_offsets ``[N]`` int32 bit offsets into
-    the flattened groups).
+    the flattened groups). The one counterpart of the JAX package's
+    ``pack_codes_grouped_dense`` (the format's fixed sizes, the defaults:
+    128-word block buffers >= 97 symbols x 32 bits) and
+    ``pack_codes_grouped_dense2`` (buffers sized by the caller); both use
+    the same deposit, phase shift and power-of-two placement arena.
     """
     N, S = lens.shape
     G = N // group_size

@@ -1,9 +1,11 @@
 """The transform and entropy-mapping steps of the codec path.
 
-Port of the parts of ``ivclab_tpu/ops/transform.py`` the fused GOP codec
-uses: ``forward_symbolize`` (pixels -> zero-run symbol buffers, for
-codebook training), ``symbol_histogram``, the hot/escape code mapping
-``map_codes_hot``, and the grouped packer's sizing helpers.
+Port of ``ivclab_tpu/ops/transform.py``: ``forward_symbolize`` (pixels ->
+zero-run symbol buffers), ``inverse_reconstruct`` (quantized coefficients
+-> pixels), ``symbol_histogram``, the full-alphabet Huffman packers of the
+intra codec (``pack_symbols``, one flat stream; ``pack_symbols_grouped``,
+16-block word-aligned groups), the hot/escape code mapping
+``map_codes_hot`` of the GOP codec, and the packers' sizing helpers.
 """
 
 from __future__ import annotations
@@ -11,12 +13,31 @@ from __future__ import annotations
 import torch
 
 from ivclab_tpu_torch.entropy.stats import histogram_int32
-from ivclab_tpu_torch.ops.bitpack import MASK32, pack_codes_grouped_dense2
-from ivclab_tpu_torch.ops.dct import dct2_fused
-from ivclab_tpu_torch.ops.zerorun import BLOCK_CAP, zerorun_encode_blocks_dense
+from ivclab_tpu_torch.ops.bitpack import (
+    MASK32,
+    pack_codes,
+    pack_codes_grouped_dense,
+    symbol_bit_layout,
+)
+from ivclab_tpu_torch.ops.dct import dct2_fused, idct2_fused
+from ivclab_tpu_torch.ops.zerorun import BLOCK_CAP, zerorun_encode_blocks
 
-# Blocks per word-aligned group substream of the grouped packer.
+# Group geometry of the grouped packer: 16 blocks per word-aligned
+# substream; worst case 16 blocks x 97 symbols x 32 bits = 1552 words.
 PACK_GROUP = 16
+GROUP_WORDS = 1600
+
+# Symbol-capacity buckets: a decoder walks the smallest one that holds the
+# stream's largest block (its sidecar says which), not the 128-slot worst case.
+CAP_SLICES = (32, 48, 64, 96, 128)
+
+
+def cap_slice(vmax: int, full: int) -> int:
+    """Smallest capacity bucket holding ``vmax`` symbols (else ``full``)."""
+    for c in CAP_SLICES:
+        if c >= vmax and c <= full:
+            return c
+    return full
 
 
 def blocks_from_plane(img: torch.Tensor, block: int = 8) -> torch.Tensor:
@@ -24,6 +45,13 @@ def blocks_from_plane(img: torch.Tensor, block: int = 8) -> torch.Tensor:
     H, W, C = img.shape
     x = img.reshape(H // block, block, W // block, block, C)
     return x.permute(0, 2, 4, 1, 3).reshape(-1, block * block)
+
+
+def plane_from_blocks(blocks: torch.Tensor, shape, block: int = 8) -> torch.Tensor:
+    """Inverse of :func:`blocks_from_plane`: ``[hp*wp*C, 64]`` -> ``[H, W, C]``."""
+    H, W, C = shape
+    x = blocks.reshape(H // block, W // block, C, block, block)
+    return x.permute(0, 3, 1, 4, 2).reshape(H, W, C)
 
 
 def forward_symbolize(img_ycbcr: torch.Tensor, inv_qtable_zz: torch.Tensor,
@@ -41,8 +69,19 @@ def forward_symbolize(img_ycbcr: torch.Tensor, inv_qtable_zz: torch.Tensor,
     inv = inv_qtable_zz.to(device=coeffs.device, dtype=torch.float32)
     scaled = coeffs.reshape(H // 8, W // 8, C, 64) * inv[None, None]
     qsym = torch.round(scaled).to(torch.int32).reshape(-1, 64)
-    buf, valid_len = zerorun_encode_blocks_dense(qsym, 64, eob, BLOCK_CAP)
+    buf, valid_len = zerorun_encode_blocks(qsym, 64, eob, BLOCK_CAP)
     return buf, valid_len, qsym
+
+
+def inverse_reconstruct(qsym: torch.Tensor, qtable_zz: torch.Tensor, shape) -> torch.Tensor:
+    """Scan-ordered quantized coefficients ``[N, 64]`` -> YCbCr plane(s)
+    ``[H, W, C]``. Dequantization truncates toward zero to int32, as the
+    course reference does."""
+    H, W, C = shape
+    table = qtable_zz.to(device=qsym.device, dtype=torch.float32)
+    deq = (qsym.reshape(H // 8, W // 8, C, 64).to(torch.float32) * table[None, None]).to(torch.int32)
+    pix = idct2_fused(deq.reshape(-1, 64).to(torch.float32))
+    return plane_from_blocks(pix, shape)
 
 
 def symbol_histogram(buf: torch.Tensor, valid_len: torch.Tensor, lo: int, hi: int):
@@ -50,6 +89,51 @@ def symbol_histogram(buf: torch.Tensor, valid_len: torch.Tensor, lo: int, hi: in
     pos = torch.arange(buf.shape[1], device=buf.device)
     mask = pos[None, :] < valid_len[:, None]
     return histogram_int32(buf, lo, hi, mask=mask)
+
+
+def _code_table_lookup(buf, valid_len, enc_codes, enc_lens, lower_bound: int):
+    """Per-slot (codes, lens) of a full-alphabet code; 0 past each row's
+    count. Symbols outside the alphabet clamp to its edge, which is the
+    nearest trained symbol because alphabets are contiguous bucketed
+    bounds around the training range."""
+    dev = buf.device
+    cap = buf.shape[1]
+    mask = torch.arange(cap, device=dev)[None, :] < valid_len.to(dev)[:, None]
+    enc_lens = enc_lens.to(dev)
+    idx = (buf.to(torch.int64) - lower_bound).clamp(0, enc_lens.shape[0] - 1)
+    lens = torch.where(mask, enc_lens[idx], 0)
+    codes = torch.where(mask, enc_codes.to(dev)[idx], 0)
+    return codes, lens
+
+
+def pack_symbols(buf: torch.Tensor, valid_len: torch.Tensor, enc_codes: torch.Tensor,
+                 enc_lens: torch.Tensor, num_words: int, lower_bound: int):
+    """Huffman-pack per-block symbol buffers into one flat word stream.
+
+    Returns (words ``[num_words]`` int64 32-bit words, total_bits as a 0-d
+    tensor, block_bit_offsets ``[N]``). Padded slots encode zero bits, so
+    the stream equals the serial encoding of the compacted symbols.
+    """
+    N, cap = buf.shape
+    codes, lens = _code_table_lookup(buf, valid_len, enc_codes, enc_lens, lower_bound)
+    off, total = symbol_bit_layout(lens)
+    words = pack_codes(codes, lens, off, num_words)
+    return words, total, off.reshape(N, cap)[:, 0]
+
+
+def pack_symbols_grouped(buf: torch.Tensor, valid_len: torch.Tensor, enc_codes: torch.Tensor,
+                         enc_lens: torch.Tensor, lower_bound: int):
+    """Huffman-pack per-block buffers into word-aligned group substreams.
+
+    ``N`` must be a multiple of PACK_GROUP (pad with empty blocks upstream).
+    Returns group_words ``[G, GROUP_WORDS]`` (int64 32-bit words),
+    group_bits ``[G]`` (exact payload bits), block_bit_offsets ``[N]`` into
+    the flattened groups, and total_bits (the sum of code lengths).
+    """
+    codes, lens = _code_table_lookup(buf, valid_len, enc_codes, enc_lens, lower_bound)
+    group_words, group_bits, block_offsets = pack_codes_grouped_dense(
+        codes, lens, PACK_GROUP, GROUP_WORDS)
+    return group_words, group_bits, block_offsets, group_bits.to(torch.int64).sum()
 
 
 def map_codes_hot(buf: torch.Tensor, valid_len: torch.Tensor, hot_values, hot_fused,
@@ -95,7 +179,7 @@ def map_codes_hot(buf: torch.Tensor, valid_len: torch.Tensor, hot_values, hot_fu
 def pack_grouped_sized(codes: torch.Tensor, lens: torch.Tensor, words_per_group: int,
                        block_words: int):
     """Grouped pack with explicitly sized group and block word buffers."""
-    return pack_codes_grouped_dense2(codes, lens, PACK_GROUP, words_per_group, block_words)
+    return pack_codes_grouped_dense(codes, lens, PACK_GROUP, words_per_group, block_words)
 
 
 def pack_extents(lens: torch.Tensor):

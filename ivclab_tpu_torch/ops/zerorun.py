@@ -1,9 +1,11 @@
 """Zero-run-length coding of scan-ordered coefficient blocks, per block.
 
-Port of ``ivclab_tpu/ops/zerorun.py`` (``zerorun_counts``,
-``zerorun_encode_blocks_dense``, ``zerorun_decode_blocks_dense``). Every
-block is coded independently and closed by an EOB symbol, so both
-directions are data-parallel over all blocks at once.
+Port of ``ivclab_tpu/ops/zerorun.py``. Every block is coded independently
+and closed by an EOB symbol, so both directions are data-parallel over all
+blocks at once: per-block buffers (``zerorun_encode_blocks``,
+``zerorun_decode_blocks``), and the compact stream of all blocks
+(``compact_symbols``, ``zerorun_decode_stream``: a global segmented prefix
+sum).
 
 Symbol grammar:
   value v != 0      -> "v"
@@ -18,6 +20,7 @@ drops what falls outside the buffer.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Worst case symbols per 64-coeff block: 32 isolated zeros (2 each) +
@@ -47,13 +50,15 @@ def zerorun_counts(zz: torch.Tensor, block_size: int = 64) -> torch.Tensor:
     return emit.sum(dim=1, dtype=torch.int32) + 1
 
 
-def zerorun_encode_blocks_dense(zz: torch.Tensor, block_size: int = 64,
-                                eob: int = DEFAULT_EOB, cap: int = BLOCK_CAP):
+def zerorun_encode_blocks(zz: torch.Tensor, block_size: int = 64,
+                          eob: int = DEFAULT_EOB, cap: int = BLOCK_CAP):
     """Encode ``[N, block_size]`` int blocks into ``[N, cap]`` symbol buffers.
 
     Returns ``(buf, valid_len)``: symbols left-packed per row, and the true
     per-block symbol count including the EOB. Symbols past ``cap`` are
-    dropped, so ``cap`` should be at least the largest count.
+    dropped, so ``cap`` should be at least the largest count. The one
+    counterpart of the JAX package's ``zerorun_encode_blocks`` (fixed
+    ``BLOCK_CAP``) and ``zerorun_encode_blocks_dense`` (any ``cap``).
     """
     x = zz.to(torch.int32)
     N = x.shape[0]
@@ -80,12 +85,14 @@ def zerorun_encode_blocks_dense(zz: torch.Tensor, block_size: int = 64,
     return buf[:, :cap], valid_len
 
 
-def zerorun_decode_blocks_dense(buf: torch.Tensor, valid_len: torch.Tensor,
-                                block_size: int = 64, eob: int = DEFAULT_EOB):
+def zerorun_decode_blocks(buf: torch.Tensor, valid_len: torch.Tensor,
+                          block_size: int = 64, eob: int = DEFAULT_EOB):
     """Decode per-block symbol buffers ``[N, cap]`` -> ``[N, block_size]``.
 
     Also returns ``ok``, a device bool: every block is EOB-terminated and
-    no block overflows ``block_size`` coefficients.
+    no block overflows ``block_size`` coefficients. The one counterpart of
+    the JAX package's ``zerorun_decode_blocks`` and
+    ``zerorun_decode_blocks_dense`` (the same integers and ``ok``).
     """
     s = buf.to(torch.int32)
     N, cap = s.shape
@@ -117,3 +124,121 @@ def zerorun_decode_blocks_dense(buf: torch.Tensor, valid_len: torch.Tensor,
     no_overflow = torch.where(valid, coeff_pos + contributed <= block_size, True).all()
     ok = terminated.all() & no_overflow
     return out[:, :block_size], ok
+
+
+def compact_symbols(buf: torch.Tensor, valid_len: torch.Tensor):
+    """Left-pack per-block symbol buffers into one padded stream.
+
+    Returns ``(stream, total)``: ``stream`` has the capacity of ``buf``
+    flattened, with every block's symbols concatenated in block order at
+    the front and zeros after; ``total`` (a 0-d tensor) is the symbol count.
+    """
+    N, cap = buf.shape
+    dev = buf.device
+    valid_len = valid_len.to(device=dev, dtype=torch.int64)
+    starts = torch.cumsum(valid_len, 0) - valid_len
+    total = valid_len.sum() if N else torch.zeros((), dtype=torch.int64, device=dev)
+    pos = torch.arange(cap, device=dev)
+    valid = pos[None, :] < valid_len[:, None]
+    # padded slots write to a trash copy of their own position: no two
+    # writes share an address
+    trash = N * cap + torch.arange(N, device=dev)[:, None] * cap + pos[None, :]
+    tgt = torch.where(valid, starts[:, None] + pos[None, :], trash)
+    out = torch.zeros(2 * N * cap, dtype=buf.dtype, device=dev)
+    out[tgt.reshape(-1)] = buf.reshape(-1)
+    return out[: N * cap], total
+
+
+def _cummax(v: torch.Tensor, row: int = 1024) -> torch.Tensor:
+    """Running maximum of a 1-D int32 tensor, in two levels: within rows of
+    ``row`` elements, then each row raised to the maximum of the rows before
+    it (max is associative, so the values are exactly ``torch.cummax``'s; a
+    single long 1-D scan runs on one CUDA block)."""
+    n = v.shape[0]
+    lowest = torch.iinfo(v.dtype).min
+    x = torch.cat([v, v.new_full(((-n) % row,), lowest)]).reshape(-1, row)
+    within = torch.cummax(x, dim=1).values
+    before = torch.cummax(within[:, -1], dim=0).values
+    before = torch.cat([before.new_full((1,), lowest), before[:-1]])
+    return torch.maximum(within, before[:, None]).reshape(-1)[:n]
+
+
+def zerorun_decode_stream(stream: torch.Tensor, num_symbols, num_blocks: int,
+                          block_size: int = 64, eob: int = DEFAULT_EOB):
+    """Decode a (padded) symbol stream back to ``[num_blocks, block_size]``.
+
+    ``stream``: 1-D, the first ``num_symbols`` entries valid. Symbols are
+    classified by position (EOB, run marker, run length, value), a global
+    prefix sum of the coefficients each contributes, rebased at every
+    block start by a running maximum, gives each value its position, and
+    one scatter rebuilds the blocks. Also returns ``ok``, a device bool:
+    the stream holds ``num_blocks`` EOBs and no block overflows.
+    """
+    s = stream.to(torch.int32).reshape(-1)
+    L = s.shape[0]
+    dev = s.device
+    pos = torch.arange(L, device=dev)
+    valid = pos < torch.as_tensor(num_symbols, device=dev)
+
+    is_eob = (s == eob) & valid
+    block_id = torch.cumsum(is_eob.to(torch.int64), 0) - is_eob.to(torch.int64)
+    is_marker = (s == 0) & valid & ~is_eob
+    prev_marker = torch.cat([torch.zeros(1, dtype=torch.bool, device=dev), is_marker[:-1]])
+    is_runlen = prev_marker & valid
+    is_value = valid & ~is_eob & ~is_marker & ~is_runlen
+
+    run_next = torch.cat([s[1:], torch.zeros(1, dtype=torch.int32, device=dev)])
+    contributed = torch.where(is_marker, run_next, is_value.to(torch.int32))
+    excl = torch.cumsum(contributed, 0, dtype=torch.int32) - contributed
+    seg_start = torch.cat([torch.ones(1, dtype=torch.bool, device=dev), is_eob[:-1]])
+    base = _cummax(torch.where(seg_start, excl, 0))
+    coeff_pos = excl - base
+
+    # values land at min(coeff_pos, block_size - 1), a negative column
+    # counting from the end (NumPy indexing, as the JAX scatter does); the
+    # rest, and blocks past num_blocks, go to the trash slot
+    col = coeff_pos.clamp(max=block_size - 1)
+    col = torch.where(col < 0, col + block_size, col)
+    keep = is_value & (block_id < num_blocks) & (col >= 0)
+    flat = torch.where(keep, block_id * block_size + col, num_blocks * block_size)
+    out = torch.zeros(num_blocks * block_size + 1, dtype=torch.int32, device=dev)
+    out[flat] = s
+    out = out[: num_blocks * block_size].reshape(num_blocks, block_size)
+
+    num_eob = is_eob.sum()
+    no_overflow = torch.where(valid, coeff_pos + contributed <= block_size, True).all()
+    ok = (num_eob == num_blocks) & no_overflow
+    return out, ok
+
+
+def _as_tensor(x) -> torch.Tensor:
+    if isinstance(x, torch.Tensor):
+        return x
+    return torch.from_numpy(np.array(x, dtype=np.int32, copy=True))
+
+
+class ZeroRunCoder:
+    """The course reference's zero-run coder facade.
+
+    ``encode`` takes ``[H_patch, W_patch, C, block_size]`` coefficients and
+    returns the compact int32 symbol stream (numpy); ``decode`` inverts it
+    given the block-grid shape and returns a tensor on the stream's device.
+    """
+
+    def __init__(self, end_of_block: int = DEFAULT_EOB, block_size: int = 64):
+        self.EOB = int(end_of_block)
+        self.block_size = int(block_size)
+
+    def encode(self, flat_patch_img) -> np.ndarray:
+        blocks = _as_tensor(flat_patch_img).to(torch.int32).reshape(-1, self.block_size)
+        buf, valid_len = zerorun_encode_blocks(blocks, self.block_size, self.EOB)
+        stream, total = compact_symbols(buf, valid_len)
+        return stream[: int(total)].cpu().numpy()
+
+    def decode(self, encoded, original_shape) -> torch.Tensor:
+        h, w, c = (int(v) for v in original_shape)
+        s = _as_tensor(encoded).to(torch.int32)
+        out, ok = zerorun_decode_stream(s, s.shape[0], h * w * c, self.block_size, self.EOB)
+        if not bool(ok):
+            raise ValueError("zero-run decode failed: corrupt stream or wrong shape")
+        return out.reshape(h, w, c, self.block_size)

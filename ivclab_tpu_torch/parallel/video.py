@@ -33,7 +33,7 @@ from ivclab_tpu_torch.models.fastvideo import EOB, PackedGop, _map_gop_hot, _sym
 from ivclab_tpu_torch.ops.motion import BLOCK
 from ivclab_tpu_torch.ops.quant import quant_table_zigzag
 from ivclab_tpu_torch.ops.transform import PACK_GROUP, pack_grouped_sized
-from ivclab_tpu_torch.ops.zerorun import BLOCK_CAP, zerorun_encode_blocks_dense
+from ivclab_tpu_torch.ops.zerorun import BLOCK_CAP, zerorun_encode_blocks
 from ivclab_tpu_torch.parallel.halo import (
     exchange_row_halo,
     motion_compensate_tile,
@@ -188,7 +188,7 @@ def build_sharded_video_encoder(mesh: Mesh, gop_len: int, band_h: int, width: in
         enc = _band_recursion(shards, mesh, H, sr, qt, inv_qt)
         bits, recons = {}, {}
         for key, (qsyms, mvs, rec) in enc.items():
-            buf, valid = zerorun_encode_blocks_dense(qsyms.reshape(-1, 64), 64, EOB, BLOCK_CAP)
+            buf, valid = zerorun_encode_blocks(qsyms.reshape(-1, 64), 64, EOB, BLOCK_CAP)
             mask = torch.arange(BLOCK_CAP, device=dev)[None, :] < valid[:, None]
             idx = (buf - lower).clamp(0, enc_lens.shape[0] - 1).long()
             rbits = torch.where(mask, enc_lens[idx], 0).reshape(gop_len, -1).sum(

@@ -1,17 +1,29 @@
-"""IVC1 bitstream container: the fused GOP codec's wire format.
+"""IVC1 bitstream container: the intra codec's and the fused GOP codec's
+wire formats.
 
-Port of the video-GOP part of ``ivclab_tpu/runtime/container.py``. The
-bytes are identical to the JAX package's; a blob written by either side
+Port of the intra and video-GOP parts of ``ivclab_tpu/runtime/container.py``.
+The bytes are identical to the JAX package's; a blob written by either side
 parses on the other.
+
+Intra (``IntraPayload``, one coded image or plane):
+
+  header      magic, version, kind (KIND_INTRA / KIND_PLANE), layout,
+              quantization scale, EOB, H/W/C, symbol count, payload bits
+  codebook    lower bound + canonical code lengths (u8 each): canonical
+              codes are fully reconstructible from lengths
+  layout      one contiguous bit stream, or the grouped layout below
+
+Video GOP (``VideoPayload``):
 
   header      magic, version, kind=KIND_VIDEO_GOP, quantization scale, EOB,
               T/H/W, payload bit count, search range, per-frame bits
   codebooks   residual + motion-vector hot/escape codes (lower bound,
               alphabet size, hot alphabet indices, canonical lengths)
-  sections    the grouped residual stream and the grouped MV stream:
-              word-aligned per-group substreams plus the per-block sidecar
-              (u16 in-group bit offset + u8 symbol count) that lets every
-              block decode independently
+  sections    the grouped residual stream and the grouped MV stream
+
+A grouped section is word-aligned per-group substreams plus the per-block
+sidecar (u16 in-group bit offset + u8 symbol count) that lets every block
+decode independently.
 
 Parsing treats the bytes as hostile: every count is bounds-checked before
 anything is allocated, and every failure is a ``ValueError``.
@@ -27,7 +39,12 @@ import torch
 
 MAGIC = b"IVC1"
 VERSION = 1
+KIND_INTRA = 0
+KIND_PLANE = 1
 KIND_VIDEO_GOP = 2
+
+LAYOUT_CONTIGUOUS = 0
+LAYOUT_GROUPED = 1
 
 # The u16 in-group bit-offset sidecar bounds a group substream to 2048 words.
 MAX_WORDS_PER_GROUP = 2048
@@ -66,6 +83,102 @@ class _Reader:
 
 def _numpy(x) -> np.ndarray:
     return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+
+
+@dataclass
+class Codebook:
+    """Transmissible form of a full-alphabet canonical code."""
+
+    lower_bound: int
+    lengths: np.ndarray  # [n] uint8
+
+    def to_bytes(self) -> bytes:
+        return struct.pack("<iI", self.lower_bound, self.lengths.size) + self.lengths.astype(
+            np.uint8
+        ).tobytes()
+
+    @classmethod
+    def from_buffer(cls, r: _Reader):
+        lower, n = r.unpack("<iI")
+        if n > MAX_CODEBOOK:
+            raise ValueError(f"codebook size {n} exceeds the format bound")
+        lengths = r.array(np.uint8, n, "codebook lengths")
+        return cls(lower, lengths)
+
+    def canonical(self):
+        from ivclab_tpu_torch.entropy.codebook import canonical_from_lengths
+
+        return canonical_from_lengths(self.lengths.astype(np.int32), self.lower_bound)
+
+
+@dataclass
+class IntraPayload:
+    """One coded image or plane."""
+
+    kind: int
+    shape: tuple  # (H, W) or (H, W, C)
+    quantization_scale: float
+    eob: int
+    num_symbols: int
+    payload_bits: int
+    codebook: Codebook
+    layout: int
+    # contiguous: the u32 words; grouped: [G, words_per_group] u32 words
+    # (zero-padded tail) with the fields below
+    words: np.ndarray
+    group_word_counts: np.ndarray | None = None
+    block_offsets: np.ndarray | None = None
+    block_counts: np.ndarray | None = None
+    group_size: int = 0
+    words_per_group: int = 0
+
+    def to_bytes(self) -> bytes:
+        H = self.shape[0]
+        W = self.shape[1]
+        C = self.shape[2] if len(self.shape) == 3 else 0  # 0 encodes "2-D shape"
+        head = struct.pack(
+            "<4sHBBfiIIIQQ",
+            MAGIC, VERSION, self.kind, self.layout, self.quantization_scale, self.eob,
+            H, W, C, self.num_symbols, self.payload_bits,
+        )
+        body = [head, self.codebook.to_bytes()]
+        if self.layout == LAYOUT_CONTIGUOUS:
+            body.append(struct.pack("<Q", self.words.size))
+            body.append(self.words.astype("<u4").tobytes())
+        else:
+            section = GroupedSection(self.words, self.group_word_counts, self.block_offsets,
+                                     self.block_counts, self.group_size, self.words_per_group)
+            body.append(section.to_bytes())
+        return b"".join(body)
+
+    @classmethod
+    def from_bytes(cls, data: bytes):
+        r = _Reader(memoryview(data))
+        magic, version, kind, layout, q, eob, H, W, C, nsym, pbits = r.unpack("<4sHBBfiIIIQQ")
+        if magic != MAGIC:
+            raise ValueError("not an IVC1 container")
+        if version != VERSION:
+            raise ValueError(f"unsupported container version {version}")
+        if kind not in (KIND_INTRA, KIND_PLANE):
+            raise ValueError(f"not an intra/plane container (kind={kind})")
+        if not (0 < H <= MAX_DIM and 0 < W <= MAX_DIM and C <= 4):
+            raise ValueError(f"implausible image shape ({H}, {W}, {C})")
+        codebook = Codebook.from_buffer(r)
+        shape = (H, W) if C == 0 else (H, W, C)
+        if layout == LAYOUT_CONTIGUOUS:
+            (nwords,) = r.unpack("<Q")
+            words = r.array("<u4", nwords, "stream words")
+            return cls(kind, shape, q, eob, nsym, pbits, codebook, layout, words)
+        section = GroupedSection.from_buffer(r)
+        return cls(
+            kind, shape, q, eob, nsym, pbits, codebook, layout, section.words,
+            section.group_word_counts, section.block_offsets, section.block_counts,
+            section.group_size, section.words_per_group,
+        )
+
+    @property
+    def container_bytes(self) -> int:
+        return len(self.to_bytes())
 
 
 @dataclass
@@ -289,3 +402,48 @@ class VideoPayload:
             [offs[:, 1:], (s.group_word_counts.astype(np.int64) * 32)[:, None]], axis=1
         )
         return int(((ends - offs).max() + 31) // 32) + 2
+
+
+def packer_wmax(gb_np, packer_stride: int) -> int:
+    """Used-words bound of a packed group batch, 8-aligned: the width a
+    section is sliced to before it is fetched and serialized."""
+    wmax = max(int((int(np.asarray(gb_np).max(initial=0)) + 31) // 32), 1)
+    return min(-(-wmax // 8) * 8, packer_stride)
+
+
+def grouped_payload_from_device(
+    kind, shape, q, eob, num_symbols, group_words, group_bits, block_offsets, block_counts,
+    codebook: Codebook, words_per_group: int, group_size: int,
+) -> IntraPayload:
+    """Assemble an IntraPayload from the grouped packer's outputs (tensors
+    or arrays; ``block_offsets`` are bit offsets into the flattened groups
+    at ``words_per_group`` stride). Raises ``ValueError`` when an in-group
+    offset overflows the u16 sidecar."""
+    s = GroupedSection.from_device(group_words, group_bits, block_offsets, block_counts,
+                                   group_size, words_per_group)
+    return IntraPayload(
+        kind=kind,
+        shape=tuple(int(d) for d in shape),
+        quantization_scale=float(q),
+        eob=int(eob),
+        num_symbols=int(num_symbols),
+        payload_bits=int(_numpy(group_bits).astype(np.int64).sum()),
+        codebook=codebook,
+        layout=LAYOUT_GROUPED,
+        words=s.words,
+        group_word_counts=s.group_word_counts,
+        block_offsets=s.block_offsets,
+        block_counts=s.block_counts,
+        group_size=group_size,
+        words_per_group=words_per_group,
+    )
+
+
+def device_views(payload: IntraPayload, device="cpu"):
+    """(words_flat int64, block_bit_offsets int32, block_counts int32)
+    tensors on ``device`` for the block-parallel decoder."""
+    if payload.layout != LAYOUT_GROUPED:
+        raise ValueError("device decode needs the grouped layout")
+    section = GroupedSection(payload.words, payload.group_word_counts, payload.block_offsets,
+                             payload.block_counts, payload.group_size, payload.words_per_group)
+    return section.device_views(device)

@@ -1,10 +1,11 @@
 """Deterministic synthetic test/benchmark imagery (numpy).
 
-A copy of the video part of ``ivclab_tpu/utils/fixtures.py``: the same
-name, length and shape give the same pixels. The course reference
-validates against real sequences distributed out of band; these are
-reproducible stand-ins with natural-image-like statistics (multi-octave
-smooth value noise + edges + texture) and real motion.
+A copy of ``ivclab_tpu/utils/fixtures.py`` (``image``, ``degraded`` and
+``video``): the same name, length and shape give the same pixels. The
+course reference validates against real images and sequences distributed
+out of band; these are reproducible stand-ins with natural-image-like
+statistics (multi-octave smooth value noise + edges + texture) and real
+motion.
 
 Everything is a pure function of the fixture name — no files, no RNG state.
 """
@@ -73,6 +74,38 @@ def _synth_rgb(seed: int, shape, texture: float = 0.04, shapes: int = 12) -> np.
     b = y + 1.772 * (cb - 128.0)
     rgb = np.stack([r, g, b], axis=-1)
     return np.clip(np.round(rgb), 0, 255).astype(np.uint8)
+
+
+_NAMED = {
+    # name: (seed, (H, W))  — stand-ins for the reference data/ images
+    "lena": (1001, (512, 512)),
+    "lena_small": (1001, (256, 256)),
+    "sail": (1002, (480, 640)),
+    "smandril": (1003, (512, 512)),
+    "peppers": (1004, (512, 512)),
+    "monarch": (1005, (512, 768)),
+    "satpic1": (1006, (384, 512)),
+}
+
+
+@functools.lru_cache(maxsize=None)
+def image(name: str) -> np.ndarray:
+    """Named deterministic RGB uint8 fixture image."""
+    if name not in _NAMED:
+        raise KeyError(f"unknown fixture {name!r}; have {sorted(_NAMED)}")
+    seed, shape = _NAMED[name]
+    return _synth_rgb(seed, shape)
+
+
+@functools.lru_cache(maxsize=None)
+def degraded(name: str, seed: int = 7, noise: float = 35.0) -> np.ndarray:
+    """A heavily degraded reconstruction pair for MSE/PSNR tests (stand-in
+    for the reference's precompressed lena_rec.tif)."""
+    rng = np.random.default_rng(seed)
+    img = image(name).astype(np.float64)
+    blur = (img + np.roll(img, 1, 0) + np.roll(img, -1, 0) + np.roll(img, 1, 1) + np.roll(img, -1, 1)) / 5.0
+    noisy = blur + noise * rng.standard_normal(img.shape)
+    return np.clip(np.round(noisy), 0, 255).astype(np.uint8)
 
 
 @functools.lru_cache(maxsize=None)

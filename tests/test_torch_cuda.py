@@ -7,21 +7,29 @@ GPU machine, which has no JAX (tests/conftest.py imports it, hence
     python3 -m pytest tests/test_torch_cuda.py --noconftest -q
 
 It holds the kernel's two entry points (whole frames and halo-extended row
-bands) against their plain PyTorch versions on the card, the codec's CUDA
-pack against its CPU pack, and the sharded codec on the card against the
-fused pack; the CPU parity with the JAX package is in the other
-tests/test_torch_*.py files.
+bands) against their plain PyTorch versions on the card, the GOP codec's
+CUDA pack against its CPU pack, the sharded codec on the card against the
+fused pack, and the intra codec's CUDA container bytes against its CPU
+bytes; and it checks that the C++ entropy engine builds there. The CPU
+parity with the JAX package is in the other tests/test_torch_*.py files.
 """
 
 import numpy as np
 import pytest
 import torch
 
-from torch_parity import assert_exact, cuda_device, luma, reference_state  # noqa: F401
+from torch_parity import (  # noqa: F401
+    assert_exact,
+    cuda_device,
+    luma,
+    reference_state,
+)
 
 import ivclab_tpu_torch.ops.motion as tmotion
-from ivclab_tpu_torch import FusedVideoCodec
+from ivclab_tpu_torch import FusedVideoCodec, HuffmanCoder, IntraCodec
 from ivclab_tpu_torch import parallel as tpar
+from ivclab_tpu_torch.models import intracodec as tintra
+from ivclab_tpu_torch.runtime import native
 from ivclab_tpu_torch.utils import fixtures
 
 
@@ -147,3 +155,33 @@ def test_sharded_codec_on_the_card_matches_the_fused_pack(cuda_device):
         assert_exact(out.mvs[sl], mvs, "mvs")
         assert torch.equal(out.recons[sl], recons)
         assert blobs[g] == codec.container_from_packed(p, mvs, (2, 128, 256))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(256, 256), (41, 57)])
+def test_intra_container_on_the_card_matches_cpu_bytes(cuda_device, shape):
+    if shape == (256, 256):
+        img = fixtures.image("lena_small")
+    else:
+        img = (np.random.default_rng(42).random((*shape, 3)) * 255).astype(np.uint8)
+    g = IntraCodec(0.5, device=cuda_device)
+    g.train_huffman_from_image(img)
+    c = IntraCodec.from_reference_state(tintra.reference_state(g), device="cpu")
+    blob = g.encode_to_container(img)
+    assert blob == c.encode_to_container(img)
+    rec = IntraCodec.decode_from_container(blob, device=cuda_device)
+    assert rec.is_cuda and tuple(rec.shape) == img.shape
+    ref, _, _ = g.encode_decode(img)
+    assert float((rec - ref).abs().max()) < 1e-2
+    rec_cpu = IntraCodec.decode_from_container(blob)
+    assert float((rec.cpu() - rec_cpu).abs().max()) < 1e-2
+
+
+@pytest.mark.cuda
+def test_native_engine_builds_on_the_gpu_machine(cuda_device):
+    assert native.available(), native.unavailable_reason()
+    coder = HuffmanCoder(lower_bound=-2).train(np.array([0.5, 0.25, 0.125, 0.125]))
+    msg = np.random.default_rng(1).integers(-2, 2, 1000)
+    words, bits = coder.encode(msg)
+    assert bits == float(coder.code.lengths[msg + 2].sum())
+    assert np.array_equal(coder.decode(words, msg.size), msg)

@@ -93,7 +93,7 @@ def test_zerorun_encode_counts(cap):
     blocks[2, 1::2] = 3
     assert_exact(tzr.zerorun_counts(to_torch(blocks)), jzr.zerorun_counts(blocks), "counts")
     j_buf, j_valid = jzr.zerorun_encode_blocks_dense(blocks, 64, 4000, cap)
-    t_buf, t_valid = tzr.zerorun_encode_blocks_dense(to_torch(blocks), 64, 4000, cap)
+    t_buf, t_valid = tzr.zerorun_encode_blocks(to_torch(blocks), 64, 4000, cap)
     assert_exact(t_buf, j_buf, "buf")
     assert_exact(t_valid, j_valid, "valid_len")
 
@@ -109,7 +109,7 @@ def test_zerorun_decode(corrupt):
         buf[flips] = rng.integers(-70, 90, flips.sum())
         valid[rng.random(valid.shape) < 0.1] = 130
     j_out, j_ok = jzr.zerorun_decode_blocks_dense(buf, valid, 64, 4000)
-    t_out, t_ok = tzr.zerorun_decode_blocks_dense(to_torch(buf), to_torch(valid), 64, 4000)
+    t_out, t_ok = tzr.zerorun_decode_blocks(to_torch(buf), to_torch(valid), 64, 4000)
     assert_exact(t_out, j_out, "decoded blocks")
     assert bool(t_ok) == bool(j_ok)
     if not corrupt:
