@@ -12,8 +12,12 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    checks that TF32 is off;
 2. kernel vs plain: the motion-search kernel against its plain PyTorch
    version on the card: exact on integer-valued and flat frames, and on
-   float fixture frames every mismatch must be a verified near-tie; times
-   both at 1088x1920;
+   float fixture frames every mismatch must be a verified near-tie; bit
+   for bit against the kernel-order plain version (which repeats the
+   kernel's summation) on the float fixture, on random float frames at
+   288x352, 40x56 and 64x384 for sr 1..7 and on a 2-pixel-periodic
+   pattern where many candidates tie; times both at 1088x1920 (the
+   kernel by its device time in a ``torch.profiler`` trace);
 3. cross-device integer exactness: one set of symbols and motion fields
    packed and serialized on CUDA and on the CPU gives identical bytes, and
    the two decodes agree;
@@ -26,7 +30,9 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    every band of 1088x1920 (4 bands) and 288x352 (2 bands) frames, sr 2, 4
    and 7: exact on integer-valued and flat frames, near-ties only on the
    float fixture, and the bands together equal to the whole-frame kernel;
-   bad row windows are refused; times both on a 272x1920 band;
+   bit for bit against the kernel-order plain version at every band of
+   phase 2's float and tie-heavy cases; bad row windows are refused; times
+   both on a 272x1920 band;
 6. the sharded path at full width: ``build_sharded_video_codec`` on an
    in-process gop=2 x tile=4 mesh on the card over 16 1920x1088 frames
    (two 8-frame GOPs, 272-row bands), against ``FusedVideoCodec.pack_gop``
@@ -45,15 +51,19 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    (c) a 2048x1536 grayscale container round trip at q=2.0 above 25 dB;
    (d) the C++ engine packs (b)'s symbol stream into the device packer's
    words and decodes them back; (e) times each intra entry point on (b),
-   and the host's pmf and Huffman tree inside its codebook training.
+   and the host's pmf and Huffman tree inside its codebook training;
+8. profile: one warm ``encode_gop`` of phase 4 and one warm sharded step
+   of phase 6 under ``torch.profiler``: device ms, kernel launches, and the
+   motion-search kernel's share.
 
 The line before the last is a JSON list of the kernels with their launch
-counts and times; the last line is ``{"ok": true, "device": {...}}``.
+counts, times and bounds; the last line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -69,19 +79,6 @@ def fail(msg: str):
 def check(cond: bool, msg: str):
     if not cond:
         fail(msg)
-
-
-def cuda_ms(fn, iters: int) -> float:
-    import torch
-
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
 
 
 def near_tie_gaps(ref, cur, a, b, sr: int, row0: int = 0):
@@ -113,6 +110,42 @@ def band_of(ref, cur, i: int, band_h: int, sr: int):
     padded = torch.nn.functional.pad(ref, (0, 0, sr, sr))
     return (padded[i * band_h:(i + 1) * band_h + 2 * sr].contiguous(),
             cur[i * band_h:(i + 1) * band_h].contiguous())
+
+
+def kernel_order_cases(fy):
+    """(label, ref, cur, sr, band height) of the bit-for-bit checks against
+    the kernel-order plain version: the float fixture pair, random float
+    frames at three sizes for every sr, and a 2-pixel-periodic pattern on
+    which every even displacement ties."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + 1)
+    cases = [("float fixture 1088x1920 sr=4", fy[0], fy[1], 4, 272)]
+    for H, W, band_h in ((288, 352, 144), (40, 56, 8), (64, 384, 16)):
+        for sr in range(1, 8):
+            ref = (rng.random((H, W)) * 255).astype(np.float32)
+            cur = (np.roll(ref, (2, -3), (0, 1)) + rng.normal(0, 0.3, (H, W))).astype(np.float32)
+            cases.append((f"random float {H}x{W} sr={sr}", ref, cur, sr, band_h))
+    yy, xx = np.indices((288, 352))
+    periodic = (40.0 * (2 * (yy % 2) + xx % 2) + 10.25).astype(np.float32)
+    for sr in range(1, 8):
+        cases.append((f"2-periodic 288x352 sr={sr}", periodic, np.roll(periodic, (1, 0), (0, 1)),
+                      sr, 144))
+    return cases
+
+
+def profile_line(label: str, fn) -> None:
+    """Phase 8: one call of ``fn`` under torch.profiler: device ms, kernel
+    launches and the motion-search kernel's part."""
+    from ivclab_tpu_torch.utils.timing import device_kernels
+
+    kernels = device_kernels(fn)
+    me = [us for name, us in kernels if "me_kernel" in name]
+    total = sum(us for _, us in kernels)
+    check(bool(me), f"{label}: the profile holds no motion-search kernel")
+    print(f"[profile] {label}: {len(kernels)} kernel launches, {total / 1e3:.3f} device ms; "
+          f"me_kernel {len(me)} launches, {sum(me) / 1e3:.4f} device ms "
+          f"({sum(me) / len(me):.3f} us each, {sum(me) / total:.4f} of the device time)")
 
 
 def luma(frames):
@@ -347,6 +380,7 @@ def main() -> None:
     from ivclab_tpu_torch.ops.dct import require_full_fp32
     from ivclab_tpu_torch.runtime import cuda_build
     from ivclab_tpu_torch.utils import fixtures
+    from ivclab_tpu_torch.utils.timing import cuda_ms, kernel_device_us, motion_search_bound
 
     dev = torch.device("cuda")
     card = subprocess.run(
@@ -364,8 +398,11 @@ def main() -> None:
     print(f"[build] {lib_path.name} from ivclab_tpu_torch/csrc/motion_search.cu "
           f"in {build_s:.2f} s")
     for line in log.splitlines():
-        if "registers" in line or "spill" in line:
+        if any(w in line for w in ("entry function", "registers", "spill")):
             print(f"[build] {line.strip()}")
+    spills = [line for line in log.splitlines()
+              if any(int(n) for n in re.findall(r"(\d+) bytes spill", line))]
+    check(not spills, f"ptxas reports spills: {spills}")
     require_full_fp32()
     check(torch.backends.cuda.matmul.allow_tf32 is False, "cuda matmul TF32 is on")
     check(torch.backends.cudnn.allow_tf32 is False, "cudnn TF32 is on")
@@ -416,15 +453,30 @@ def main() -> None:
           f"largest relative SSD gap {worst_gap:.3e}")
     check(worst_gap < 1e-5, "a float mismatch is not a near-tie")
 
+    order_cases = kernel_order_cases(fy)
+    for label, r_np, c_np, sr, _ in order_cases:
+        R2, C2 = torch.from_numpy(r_np).to(dev), torch.from_numpy(c_np).to(dev)
+        a = motion.motion_search_cuda(R2, C2, sr)
+        b = motion.motion_search_kernel_order(R2, C2, sr)
+        bad = int((a != b).sum())
+        max_abs_err = max(max_abs_err, int((a - b).abs().max()))
+        print(f"[me] kernel-order plain, {label}: {bad} of {a.numel()} differ")
+        check(bad == 0, f"kernel != kernel-order plain: {label}")
+
     for _ in range(3):
         motion.motion_search_cuda(R, C, 4)
         motion.motion_search_reference(R, C, 4)
-    kernel_ms, plain_ms = [], []
+    kernel_us, event_ms, plain_ms = [], [], []
     for _ in range(2):  # alternate, kernel first then plain
-        kernel_ms.append(cuda_ms(lambda: motion.motion_search_cuda(R, C, 4), 50))
+        kernel_us.append(float(np.mean(kernel_device_us(
+            lambda: motion.motion_search_cuda(R, C, 4), 50, "me_kernel"))))
+        event_ms.append(cuda_ms(lambda: motion.motion_search_cuda(R, C, 4), 50))
         plain_ms.append(cuda_ms(lambda: motion.motion_search_reference(R, C, 4), 10))
-    me_ms, me_plain_ms = float(np.mean(kernel_ms)), float(np.mean(plain_ms))
-    print(f"[me] 1088x1920 sr=4 kernel {kernel_ms} ms, plain {plain_ms} ms ({card})")
+    me_ms, me_plain_ms = float(np.mean(kernel_us)) / 1e3, float(np.mean(plain_ms))
+    me_bound = motion_search_bound(H, H, W, 4)
+    print(f"[me] 1088x1920 sr=4 kernel {kernel_us} us device (mean of 50 launches), {event_ms} ms "
+          f"per call (CUDA events, host enqueue included), plain {plain_ms} ms; bound "
+          f"{me_bound[0] * 1e3:.3f} us ({me_bound[1]}), {me_bound[0] / me_ms:.3f} of it ({card})")
 
     # ------------------------------------- 3. cross-device integer exactness
     small = luma(fixtures.video("bench", 4, (256, 480)))
@@ -555,6 +607,21 @@ def main() -> None:
     check(worst_band_gap < 1e-5, "a float band mismatch is not a near-tie")
     check(np.array_equal(np.concatenate(got), whole), "float bands != whole-frame kernel")
 
+    for label, r_np, c_np, sr, bh in order_cases:
+        R2, C2 = torch.from_numpy(r_np).to(dev), torch.from_numpy(c_np).to(dev)
+        H2 = R2.shape[0]
+        bad = n = 0
+        for i in range(H2 // bh):
+            ext, band = band_of(R2, C2, i, bh, sr)
+            a = motion.motion_search_tile_cuda(ext, band, i * bh, H2, sr)
+            b = motion.motion_search_tile_kernel_order(ext, band, i * bh, H2, sr)
+            bad += int((a != b).sum())
+            n += a.numel()
+            tile_err = max(tile_err, int((a - b).abs().max()))
+        print(f"[band] kernel-order plain, {label} in {H2 // bh} bands of {bh} rows: "
+              f"{bad} of {n} differ")
+        check(bad == 0, f"band kernel != kernel-order plain: {label}")
+
     before = motion.TILE_LAUNCHES
     for row0, ext_rows, total_h in [(4, 24, 64), (56, 24, 64), (0, 26, 64), (-8, 24, 64)]:
         try:
@@ -570,13 +637,20 @@ def main() -> None:
     for _ in range(3):
         motion.motion_search_tile_cuda(ext, band, band_h, H, 4)
         motion.motion_search_tile_reference(ext, band, band_h, H, 4)
-    tile_ms, tile_plain_ms = [], []
+    tile_us, tile_event_ms, tile_plain_ms = [], [], []
     for _ in range(2):  # alternate, kernel first then plain
-        tile_ms.append(cuda_ms(lambda: motion.motion_search_tile_cuda(ext, band, band_h, H, 4), 50))
+        tile_us.append(float(np.mean(kernel_device_us(
+            lambda: motion.motion_search_tile_cuda(ext, band, band_h, H, 4), 50, "me_kernel"))))
+        tile_event_ms.append(cuda_ms(
+            lambda: motion.motion_search_tile_cuda(ext, band, band_h, H, 4), 50))
         tile_plain_ms.append(cuda_ms(
             lambda: motion.motion_search_tile_reference(ext, band, band_h, H, 4), 10))
-    band_ms, band_plain_ms = float(np.mean(tile_ms)), float(np.mean(tile_plain_ms))
-    print(f"[band] {band_h}x{W} band sr=4 kernel {tile_ms} ms, plain {tile_plain_ms} ms ({card})")
+    band_ms, band_plain_ms = float(np.mean(tile_us)) / 1e3, float(np.mean(tile_plain_ms))
+    band_bound = motion_search_bound(band_h + 8, band_h, W, 4)
+    print(f"[band] {band_h}x{W} band sr=4 kernel {tile_us} us device (mean of 50 launches), "
+          f"{tile_event_ms} ms per call (CUDA events), plain {tile_plain_ms} ms; bound "
+          f"{band_bound[0] * 1e3:.3f} us ({band_bound[1]}), {band_bound[0] / band_ms:.3f} of it "
+          f"({card})")
 
     # ------------------------------------- 6. the sharded path at full width
     from ivclab_tpu_torch import parallel
@@ -651,6 +725,11 @@ def main() -> None:
     # --------------------------------- 7. the intra codec at full width
     intra_phase(dev, card)
 
+    # ---------------------------------------------------------- 8. profile
+    profile_line(f"encode_gop 1920x1088 T={T}", lambda: codec.encode_gop(y_dev))
+    profile_line(f"sharded step {W}x{H} T={T6} gop={n_gop} x tile={n_tile}",
+                 lambda: step(parallel.shard_frames(y6_dev, mesh)))
+
     print(json.dumps({"kernels": [{
         "name": "motion_search",
         "route": "cuda",
@@ -660,6 +739,9 @@ def main() -> None:
         "max_abs_err": max_abs_err,
         "ms": me_ms,
         "plain_ms": me_plain_ms,
+        "bound_ms": me_bound[0],
+        "bound_by": me_bound[1],
+        "library_ms": None,  # no single PyTorch call computes a full-search argmin
     }, {
         "name": "motion_search_tile",
         "route": "cuda",
@@ -669,6 +751,9 @@ def main() -> None:
         "max_abs_err": tile_err,
         "ms": band_ms,
         "plain_ms": band_plain_ms,
+        "bound_ms": band_bound[0],
+        "bound_by": band_bound[1],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -227,7 +227,7 @@ class FusedVideoCodec:
     """Fixed-codebook hybrid codec; every GOP phase runs on ``device``."""
 
     def __init__(self, quantization_scale: float = 1.0, search_range: int = 4,
-                 device: str | torch.device = "cpu"):
+                 device: str | torch.device = "cuda"):
         self.q = float(quantization_scale)
         self.sr = int(search_range)
         self.device = torch.device(device)
@@ -239,7 +239,7 @@ class FusedVideoCodec:
         self._buckets: tuple[int, int, int] | None = None
 
     @classmethod
-    def from_reference_state(cls, state: dict, device: str | torch.device = "cpu"):
+    def from_reference_state(cls, state: dict, device: str | torch.device = "cuda"):
         """A codec computing what a trained JAX ``FusedVideoCodec`` computes.
 
         ``state`` holds plain numbers and numpy arrays:
@@ -430,7 +430,7 @@ class FusedVideoCodec:
         return payload.to_bytes()
 
     @classmethod
-    def decode_from_container(cls, blob: bytes, device: str | torch.device = "cpu"):
+    def decode_from_container(cls, blob: bytes, device: str | torch.device = "cuda"):
         """Reconstruct a GOP from bytes alone. Returns ([T, H, W] float32
         Y reconstructions, ok) on ``device``."""
         p = VideoPayload.from_bytes(blob)

@@ -107,7 +107,7 @@ class IntraCodec:
         bounds=None,
         end_of_block: int = 4000,
         block_shape=(8, 8),
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
     ):
         self.quantization_scale = float(quantization_scale)
         self.bounds = bounds
@@ -119,7 +119,7 @@ class IntraCodec:
         self._qt_cache: dict[int, tuple[torch.Tensor, torch.Tensor]] = {}
 
     @classmethod
-    def from_reference_state(cls, state: dict, device: str | torch.device = "cpu"):
+    def from_reference_state(cls, state: dict, device: str | torch.device = "cuda"):
         """A codec computing what a trained JAX ``IntraCodec`` computes.
 
         ``state`` holds plain numbers and numpy arrays:
@@ -329,7 +329,7 @@ class IntraCodec:
         return payload.to_bytes()
 
     @staticmethod
-    def decode_from_container(data: bytes, device: str | torch.device = "cpu") -> torch.Tensor:
+    def decode_from_container(data: bytes, device: str | torch.device = "cuda") -> torch.Tensor:
         """Decode an IVC1 byte stream with a fresh codec on ``device``."""
         payload = ct.IntraPayload.from_bytes(data)
         codec = IntraCodec(quantization_scale=payload.quantization_scale,

@@ -86,7 +86,7 @@ def bit_window32(words: torch.Tensor, bitpos: torch.Tensor) -> torch.Tensor:
     return torch.where(sh == 0, w1, ((w1 << sh) | (w2 >> (32 - sh))) & MASK32)
 
 
-def decode_tables(code: CanonicalCode, device="cpu"):
+def decode_tables(code: CanonicalCode, device="cuda"):
     """Decoder tables for :func:`decode_blocks_device`: (lj_next_minus1 [32],
     first_code [33], group_offset [33], sorted_syms [n]) as int64 tensors on
     ``device``, then min_len and max_len as ints."""

@@ -17,6 +17,12 @@ frame height.
 their inputs: CPU tensors go to the plain PyTorch version, CUDA tensors to
 the hand-written Hopper kernel ``csrc/motion_search.cu`` (or the call
 raises).
+
+``motion_search_kernel_order`` and ``motion_search_tile_kernel_order``
+repeat the kernel's arithmetic step for step (each SSD summed from 0 in
+row-then-column order, every subtract, square and add rounded on its own),
+so the kernel must equal them bit for bit on any finite input. They serve
+the tests and ``chip_smoke.py``; no codec path calls them.
 """
 
 from __future__ import annotations
@@ -84,17 +90,75 @@ def motion_search_reference(ref_image: torch.Tensor, image: torch.Tensor,
     return motion_search_tile_reference(ref, image, 0, image.shape[0], sr)
 
 
-@functools.lru_cache(maxsize=None)
-def _lib():
-    from ivclab_tpu_torch.runtime import cuda_build
+def motion_search_tile_kernel_order(ref_ext: torch.Tensor, cur_tile: torch.Tensor, row0: int,
+                                    total_h: int, search_range: int = 4) -> torch.Tensor:
+    """Band search in the kernel's arithmetic: for each candidate a float32
+    accumulator from 0 takes ``(c - r) * (c - r)`` pixel by pixel, rows
+    outer and columns inner, each subtract, multiply and add a separate
+    elementwise op; out-of-frame candidates are masked and the argmin is
+    the strict ``<`` first in scan order. Same arguments and result as
+    :func:`motion_search_tile_reference`.
+    """
+    sr = search_range
+    block = BLOCK
+    total = 2 * sr + 1
+    cur = cur_tile.to(torch.float32)
+    Ht, W = cur.shape
+    hb, wb = Ht // block, W // block
+    dev = cur.device
+    # columns padded by sr zeros: candidate dx reads columns sr + dx onward
+    ref = torch.nn.functional.pad(ref_ext.to(torch.float32), (sr, sr))
+    cur_px = cur.reshape(hb, block, wb, block)
+    by = torch.arange(hb, device=dev) * block + int(row0)
+    bx = torch.arange(wb, device=dev) * block
 
-    lib = cuda_build.load("motion_search")
+    min_ssd = torch.full((hb, wb), float("inf"), dtype=torch.float32, device=dev)
+    best = torch.zeros((hb, wb), dtype=torch.int32, device=dev)
+    for dy in range(-sr, sr + 1):
+        rows = ref[sr + dy:sr + dy + Ht]
+        # [total, hb, 8, wb, 8]: every dx of this dy
+        cand = torch.stack([rows[:, sr + dx:sr + dx + W] for dx in range(-sr, sr + 1)])
+        cand = cand.reshape(total, hb, block, wb, block)
+        acc = torch.zeros((total, hb, wb), dtype=torch.float32, device=dev)
+        for r in range(block):
+            for k in range(block):
+                diff = cur_px[:, r, :, k] - cand[:, :, r, :, k]
+                acc = acc + diff * diff
+        valid_y = (by + dy >= 0) & (by + dy + block <= total_h)
+        for d in range(total):
+            dx = d - sr
+            valid_x = (bx + dx >= 0) & (bx + dx + block <= W)
+            take = valid_y[:, None] & valid_x[None, :] & (acc[d] < min_ssd)
+            min_ssd = torch.where(take, acc[d], min_ssd)
+            best = best.masked_fill(take, (dy + sr) * total + d)
+    return best
+
+
+def motion_search_kernel_order(ref_image: torch.Tensor, image: torch.Tensor,
+                               search_range: int = 4) -> torch.Tensor:
+    """Whole-frame search in the kernel's arithmetic: the band at row 0 of a
+    frame whose halo rows lie outside it (see
+    :func:`motion_search_tile_kernel_order`)."""
+    sr = search_range
+    ref = torch.nn.functional.pad(ref_image.to(torch.float32), (0, 0, sr, sr))
+    return motion_search_tile_kernel_order(ref, image, 0, image.shape[0], sr)
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a ``csrc/motion_search.cu`` build on ``lib``."""
     vp, i = ctypes.c_void_p, ctypes.c_int
     lib.ivc_motion_search.argtypes = [vp, vp, vp, i, i, i, vp]
     lib.ivc_motion_search.restype = i
     lib.ivc_motion_search_tile.argtypes = [vp, i, vp, vp, i, i, i, i, i, vp]
     lib.ivc_motion_search_tile.restype = i
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _lib():
+    from ivclab_tpu_torch.runtime import cuda_build
+
+    return bind(cuda_build.load("motion_search"))
 
 
 def _check_planes(device, **planes: torch.Tensor):
@@ -105,6 +169,8 @@ def _check_planes(device, **planes: torch.Tensor):
             raise ValueError(f"{name} must be a contiguous 2-D tensor")
         if not (t.is_cuda and t.device == device):
             raise ValueError(f"needs every plane on one CUDA device, got {name} on {t.device}")
+        if t.data_ptr() % 16:  # the copy engine's tensor maps need 16-byte aligned planes
+            raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
 def _check_search_range(search_range) -> int:

@@ -79,7 +79,7 @@ def _factor(n: int, n_gop: int | None, n_tile: int | None) -> tuple[int, int]:
 
 
 def make_mesh(n_gop: int | None = None, n_tile: int | None = None, *,
-              device: str | torch.device = "cpu", distributed: bool = False) -> Mesh:
+              device: str | torch.device = "cuda", distributed: bool = False) -> Mesh:
     """Build a ``(gop, tile)`` mesh.
 
     In-process (the default): ``n_gop * n_tile`` shards on ``device``.

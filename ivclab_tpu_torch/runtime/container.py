@@ -315,7 +315,7 @@ class GroupedSection:
             words_per_group=words_per_group,
         )
 
-    def device_views(self, device="cpu"):
+    def device_views(self, device="cuda"):
         """(words_flat int64, block_bit_offsets int32, block_counts int32)
         tensors on ``device``."""
         base = np.arange(self.group_word_counts.size, dtype=np.int64) * (
@@ -439,7 +439,7 @@ def grouped_payload_from_device(
     )
 
 
-def device_views(payload: IntraPayload, device="cpu"):
+def device_views(payload: IntraPayload, device="cuda"):
     """(words_flat int64, block_bit_offsets int32, block_counts int32)
     tensors on ``device`` for the block-parallel decoder."""
     if payload.layout != LAYOUT_GROUPED:

@@ -103,10 +103,16 @@ def build(name: str) -> tuple[Path, str]:
     Returns ``(path, log)``; ``log`` is nvcc's stderr (ptxas register and
     shared-memory report) or ``""`` when the cached build was reused.
     """
-    out = library_path(name)
+    return build_file(CSRC / f"{name}.cu")
+
+
+def build_file(src: Path, build_dir: Path = BUILD_DIR) -> tuple[Path, str]:
+    """Compile any ``.cu`` source with the kernels' nvcc flags into
+    ``build_dir`` unless its hashed build exists; returns ``(path, log)``."""
+    out = _hashed(src, NVCC_FLAGS, build_dir)
     if out.exists():
         return out, ""
-    return out, _compile(CSRC / f"{name}.cu", out, [find_nvcc(), *NVCC_FLAGS])
+    return out, _compile(src, out, [find_nvcc(), *NVCC_FLAGS])
 
 
 def load(name: str) -> ctypes.CDLL:

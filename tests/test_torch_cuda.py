@@ -70,12 +70,94 @@ def test_kernel_float_mismatches_are_near_ties(cuda_device):
         assert abs(ssd[0] - ssd[1]) <= 1e-5 * max(ssd[0], ssd[1], 1.0)
 
 
+def _bands_of(H):
+    """Band height for splitting an H-row frame: halves where they are whole
+    8-row blocks, else single block rows."""
+    return H // 2 if (H // 2) % 8 == 0 else 8
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(288, 352), (40, 56), (64, 384)])
+@pytest.mark.parametrize("sr", range(1, 8))
+def test_kernel_equals_kernel_order_plain_on_float_frames(cuda_device, H, W, sr):
+    """The kernel repeats the kernel-order plain version's arithmetic, so
+    both entry points equal it bit for bit on float frames, every band too."""
+    rng = np.random.default_rng(1000 * sr + H)
+    ref = (rng.random((H, W)) * 255).astype(np.float32)
+    cur = (np.roll(ref, (2, -3), (0, 1)) + rng.normal(0, 0.3, (H, W))).astype(np.float32)
+    R = torch.from_numpy(ref).to(cuda_device)
+    C = torch.from_numpy(cur).to(cuda_device)
+    assert_exact(tmotion.motion_search_cuda(R, C, sr),
+                 tmotion.motion_search_kernel_order(R, C, sr), "whole frame")
+    band_h = _bands_of(H)
+    for i in range(H // band_h):
+        ext, band = _band(R, C, i, band_h, sr)
+        assert_exact(tmotion.motion_search_tile_cuda(ext, band, i * band_h, H, sr),
+                     tmotion.motion_search_tile_kernel_order(ext, band, i * band_h, H, sr),
+                     f"band {i}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["flat", "periodic"])
+@pytest.mark.parametrize("sr", range(1, 8))
+def test_kernel_on_tie_heavy_frames(cuda_device, pattern, sr):
+    """Many candidates tie: the first valid one in scan order must win, and
+    zero-filled out-of-frame candidates (SSD 0 on a flat zero frame) never."""
+    H, W = 64, 128
+    if pattern == "flat":
+        ref = np.zeros((H, W), np.float32)
+        cur = np.zeros((H, W), np.float32)
+    else:  # 2-pixel periodic: every even displacement ties exactly
+        yy, xx = np.indices((H, W))
+        ref = (40.0 * (2 * (yy % 2) + xx % 2) + 10.0).astype(np.float32)
+        cur = np.roll(ref, (1, 0), (0, 1))
+    R = torch.from_numpy(ref).to(cuda_device)
+    C = torch.from_numpy(cur).to(cuda_device)
+    got = tmotion.motion_search_cuda(R, C, sr)
+    assert_exact(got, tmotion.motion_search_kernel_order(R, C, sr), "vs kernel order")
+    assert_exact(got, tmotion.motion_search_reference(R, C, sr), "vs plain reference")
+    for i in range(4):
+        ext, band = _band(R, C, i, 16, sr)
+        a = tmotion.motion_search_tile_cuda(ext, band, i * 16, H, sr)
+        assert_exact(a, tmotion.motion_search_tile_kernel_order(ext, band, i * 16, H, sr),
+                     f"band {i}")
+        assert_exact(a, got[i * 2:(i + 1) * 2], f"band {i} vs whole frame")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sr", [4, 7])
+def test_first_and_last_band_equal_kernel_order_plain(cuda_device, sr):
+    """The bench fixture at 1088x1920 in 4 bands: row0 = 0, whose halo rows
+    above lie outside the frame, and the last band, whose halo rows below do."""
+    H, W, band_h = 1088, 1920, 272
+    y = luma(fixtures.video("bench", 2, (H, W)))
+    R = torch.from_numpy(y[0]).to(cuda_device)
+    C = torch.from_numpy(y[1]).to(cuda_device)
+    whole = tmotion.motion_search_cuda(R, C, sr)
+    for i in (0, H // band_h - 1):
+        ext, band = _band(R, C, i, band_h, sr)
+        got = tmotion.motion_search_tile_cuda(ext, band, i * band_h, H, sr)
+        assert_exact(got, tmotion.motion_search_tile_kernel_order(ext, band, i * band_h, H, sr),
+                     f"band {i}")
+        assert_exact(got, whole[i * band_h // 8:(i + 1) * band_h // 8], f"band {i} vs whole")
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_a_misaligned_plane(cuda_device):
+    flat = torch.zeros(16 * 32 + 1, device=cuda_device)
+    x = torch.zeros((16, 32), device=cuda_device)
+    before = tmotion.LAUNCHES
+    with pytest.raises(ValueError, match="16-byte"):
+        tmotion.motion_search_cuda(flat[1:].view(16, 32), x, 4)
+    assert tmotion.LAUNCHES == before
+
+
 @pytest.mark.cuda
 def test_gop_on_the_card_matches_cpu_bytes(cuda_device):
     seq = luma(fixtures.video("bench", 4, (128, 256)))
     g = FusedVideoCodec(1.0, device=cuda_device).train(seq[:2])
     qsyms, mvs, _, _ = g.encode_gop(seq)
-    c = FusedVideoCodec.from_reference_state(reference_state(g))
+    c = FusedVideoCodec.from_reference_state(reference_state(g), device="cpu")
     pg, pc = g.pack_gop(qsyms), c.pack_gop(qsyms.cpu())
     assert g.container_from_packed(pg, mvs, seq.shape) == c.container_from_packed(
         pc, mvs.cpu(), seq.shape)
@@ -93,6 +175,28 @@ def _band(ref, cur, i, band_h, sr):
     padded = torch.nn.functional.pad(ref, (0, 0, sr, sr))
     return (padded[i * band_h:(i + 1) * band_h + 2 * sr].contiguous(),
             cur[i * band_h:(i + 1) * band_h].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sr", [1, 4, 7])
+def test_band_halo_rows_outside_the_frame_do_not_matter(cuda_device, sr):
+    """The kernel copies a band's whole halo-extended reference; rows that
+    fall outside the frame (above the first band, below the last) reach only
+    masked candidates, so NaN there gives the indices that zeros give."""
+    H, W, band_h = 64, 128, 16
+    rng = np.random.default_rng(50 + sr)
+    ref = (rng.random((H, W)) * 255).astype(np.float32)
+    cur = (np.roll(ref, (1, 2), (0, 1)) + rng.normal(0, 0.5, (H, W))).astype(np.float32)
+    R = torch.from_numpy(ref).to(cuda_device)
+    C = torch.from_numpy(cur).to(cuda_device)
+    for i, outside in ((0, slice(0, sr)), (H // band_h - 1, slice(band_h + sr, band_h + 2 * sr))):
+        ext, band = _band(R, C, i, band_h, sr)
+        want = tmotion.motion_search_tile_cuda(ext, band, i * band_h, H, sr)
+        ext[outside] = float("nan")
+        got = tmotion.motion_search_tile_cuda(ext, band, i * band_h, H, sr)
+        assert_exact(got, want, f"band {i}")
+        assert_exact(got, tmotion.motion_search_tile_kernel_order(ext, band, i * band_h, H, sr),
+                     f"band {i} vs kernel order")
 
 
 @pytest.mark.cuda
@@ -173,7 +277,7 @@ def test_intra_container_on_the_card_matches_cpu_bytes(cuda_device, shape):
     assert rec.is_cuda and tuple(rec.shape) == img.shape
     ref, _, _ = g.encode_decode(img)
     assert float((rec - ref).abs().max()) < 1e-2
-    rec_cpu = IntraCodec.decode_from_container(blob)
+    rec_cpu = IntraCodec.decode_from_container(blob, device="cpu")
     assert float((rec.cpu() - rec_cpu).abs().max()) < 1e-2
 
 

@@ -51,8 +51,8 @@ def test_two_gloo_processes_give_the_single_process_bytes(tmp_path):
         golden.append(j.container_from_packed(j.pack_gop(qs), mvs, (2, 64, 64)))
     cap, bw, gw = j._buckets
 
-    t = TorchCodec.from_reference_state(reference_state(j))
-    mesh = tpar.make_mesh(1, 2)
+    t = TorchCodec.from_reference_state(reference_state(j), device="cpu")
+    mesh = tpar.make_mesh(1, 2, device="cpu")
     step = tpar.build_sharded_video_codec(mesh, t, 2, 32, 64, cap, gw, bw)
     in_process = []
     for g in range(2):
@@ -87,7 +87,7 @@ def test_two_gloo_processes_give_the_single_process_bytes(tmp_path):
         off += 8 + n
     assert blobs == golden  # the two-process stream IS the single-process stream
     for g, blob in enumerate(blobs):
-        recons, ok = TorchCodec.decode_from_container(blob)
+        recons, ok = TorchCodec.decode_from_container(blob, device="cpu")
         jrec, jok = JaxCodec.decode_from_container(blob)
         assert bool(ok) and bool(jok)
         assert_close(recons, np.asarray(jrec), RECON_TOL, f"GOP {g} decode")

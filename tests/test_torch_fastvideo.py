@@ -57,7 +57,7 @@ def test_fixtures_are_identical():
 def test_train_matches(H, W):
     y = _video(2, H, W)
     j = JaxCodec(1.0).train(y)
-    t = TorchCodec(1.0).train(y)
+    t = TorchCodec(1.0, device="cpu").train(y)
     _assert_same_code(t.residual_code, j.residual_code)
     _assert_same_code(t.mv_code, j.mv_code)
 
@@ -90,7 +90,7 @@ def _compare_gop(j, t, x):
     assert t_blob == j_blob
     assert t.encode_to_container(x) == j.encode_to_container(x)
 
-    t_of_j, ok1 = TorchCodec.decode_from_container(j_blob)
+    t_of_j, ok1 = TorchCodec.decode_from_container(j_blob, device="cpu")
     j_of_t, ok2 = JaxCodec.decode_from_container(t_blob)
     assert bool(ok1) and bool(ok2)
     assert_close(t_of_j, jrec, RECON_TOL, "port decodes JAX bytes")
@@ -101,7 +101,7 @@ def _compare_gop(j, t, x):
 def test_gop_sequence_matches(H, W, T, n_gops):
     seq = _video(T * n_gops, H, W)
     j = JaxCodec(1.0).train(seq[:2])
-    t = TorchCodec.from_reference_state(reference_state(j))
+    t = TorchCodec.from_reference_state(reference_state(j), device="cpu")
     for g in range(n_gops):
         _compare_gop(j, t, seq[g * T:(g + 1) * T])
         assert t._buckets == j._buckets
@@ -110,7 +110,7 @@ def test_gop_sequence_matches(H, W, T, n_gops):
 def test_encode_decode_gop_matches():
     seq = _video(4, 64, 128)
     j = JaxCodec(1.0, search_range=3).train(seq[:2])
-    t = TorchCodec.from_reference_state(reference_state(j))
+    t = TorchCodec.from_reference_state(reference_state(j), device="cpu")
     jr, jbits, jok, jenc = j.encode_decode_gop(seq)
     tr, tbits, tok, tenc = t.encode_decode_gop(seq)
     assert bool(tok) and bool(jok)
@@ -130,7 +130,7 @@ def test_sticky_bucket_violation_and_repack():
     seq = _video(3, 64, 128)
     j = JaxCodec(1.0).train(seq[:2])
     j._buckets = (32, 4, 64)  # too small for this content
-    t = TorchCodec.from_reference_state(reference_state(j))
+    t = TorchCodec.from_reference_state(reference_state(j), device="cpu")
     assert t._buckets == (32, 4, 64)
     jq = np.asarray(j.encode_gop(seq)[0])
     jp = j.pack_gop(jq, check=False)
@@ -150,8 +150,8 @@ def test_sticky_bucket_violation_and_repack():
 
 def test_state_round_trip_keeps_the_codec():
     seq = _video(2, 64, 128)
-    t = TorchCodec(1.0, search_range=2).train(seq)
-    t2 = TorchCodec.from_reference_state(reference_state(t))
+    t = TorchCodec(1.0, search_range=2, device="cpu").train(seq)
+    t2 = TorchCodec.from_reference_state(reference_state(t), device="cpu")
     assert t2.encode_to_container(seq) == t.encode_to_container(seq)
     with pytest.raises(ValueError):
         tfv._bucket(4096, tfv.GW_BUCKETS)

@@ -236,7 +236,7 @@ def test_trained_code_lengths_equal_jax(name):
     it, so each side training on its own gives the same code."""
     img = jfix.image(name)
     for q in (0.15, 0.5, 1.0, 2.0):
-        j, t = JIntra(q), TIntra(q)
+        j, t = JIntra(q), TIntra(q, device="cpu")
         j.train_huffman_from_image(img)
         t.train_huffman_from_image(img)
         assert t.bounds == j.bounds, (name, q)

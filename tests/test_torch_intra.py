@@ -181,7 +181,7 @@ def test_decode_blocks_device_matches_jax(name):
     assert_exact(t_offs, j_offs, "block offsets")
     assert int(t_total) == int(j_total)
 
-    tables = tbp.decode_tables(t_code)
+    tables = tbp.decode_tables(t_code, device="cpu")
     for max_syms in (cap, 32):
         j_dec = jbp.decode_blocks_device(j_words, j_offs, valid, jbp.decode_tables(j_code), max_syms)
         t_dec = tbp.decode_blocks_device(t_words, t_offs, to_torch(valid), tables, max_syms)
@@ -260,7 +260,7 @@ def test_intra_payload_round_trips_jax_bytes(jax_intra_blob):
     assert t.container_bytes == len(jax_intra_blob)
     assert (t.kind, t.shape, t.num_symbols, t.payload_bits, t.layout) == (
         j.kind, j.shape, j.num_symbols, j.payload_bits, j.layout)
-    for got, want in zip(tct.device_views(t), jct.device_views(j)):
+    for got, want in zip(tct.device_views(t, device="cpu"), jct.device_views(j)):
         assert isinstance(got, torch.Tensor)
         assert_exact(got, np.asarray(want), "device view")
     assert_exact(t.codebook.canonical().codes, j.codebook.canonical().codes, "canonical codes")
@@ -276,7 +276,7 @@ def test_intra_payload_round_trips_jax_bytes(jax_intra_blob):
     back = tct.IntraPayload.from_bytes(jp.to_bytes())
     assert back.shape == (9, 11) and back.to_bytes() == jp.to_bytes()
     with pytest.raises(ValueError, match="grouped layout"):
-        tct.device_views(back)
+        tct.device_views(back, device="cpu")
 
 
 def test_intra_payload_rejects_what_jax_rejects(jax_intra_blob):
@@ -316,7 +316,7 @@ def test_intra_payload_rejects_what_jax_rejects(jax_intra_blob):
 
 def test_foreign_kind_is_rejected():
     y = np.random.default_rng(2).integers(0, 256, (3, 32, 32)).astype(np.float32)
-    gop = TFused(1.0).train(y[:2]).encode_to_container(y)
+    gop = TFused(1.0, device="cpu").train(y[:2]).encode_to_container(y)
     with pytest.raises(ValueError, match="intra/plane"):
         tct.IntraPayload.from_bytes(gop)
 
@@ -361,7 +361,7 @@ def _case_image(case):
                                     ("odd45", 0.5), ("odd41", 0.5)])
 def test_codec_matches_jax(case, q):
     img, rgb = _case_image(case)
-    j, t = JIntra(q), TIntra(q)
+    j, t = JIntra(q), TIntra(q, device="cpu")
     j.train_huffman_from_image(img, is_source_rgb=rgb)
     t.train_huffman_from_image(img, is_source_rgb=rgb)
     assert t.bounds == j.bounds
@@ -377,7 +377,7 @@ def test_codec_matches_jax(case, q):
     t_blob = t.encode_to_container(img, is_source_rgb=rgb)
     j_blob = j.encode_to_container(img, is_source_rgb=rgb)
     assert t_blob == j_blob
-    t_rec = TIntra.decode_from_container(j_blob)
+    t_rec = TIntra.decode_from_container(j_blob, device="cpu")
     j_rec = np.asarray(JIntra.decode_from_container(t_blob))
     assert isinstance(t_rec, torch.Tensor) and tuple(t_rec.shape) == np.shape(img)
     assert_close(t_rec, j_rec, RECON_TOL, "each side decodes the other's bytes")
@@ -393,23 +393,23 @@ def test_codec_matches_jax(case, q):
 @pytest.mark.parametrize("case", ["rgb", "gray"])
 def test_adaptive_codec_matches_jax(case):
     img, rgb = _case_image(case)
-    encoder = TAdaptive(0.5)
+    encoder = TAdaptive(0.5, device="cpu")
     t_packed, t_bits = encoder.intra_encode(img, is_source_rgb=rgb)
     j_packed, j_bits = JAdaptive(0.5).intra_encode(img, is_source_rgb=rgb)
     assert t_bits == j_bits
     assert t_packed[0] == j_packed[0] and t_packed[1] == j_packed[1] and t_packed[3] == j_packed[3]
     assert_exact(t_packed[2], j_packed[2], "words")
-    rec = TAdaptive(0.5).intra_decode(j_packed, np.shape(img))
+    rec = TAdaptive(0.5, device="cpu").intra_decode(j_packed, np.shape(img))
     assert_close(rec, JAdaptive(0.5).intra_decode(t_packed, np.shape(img)), RECON_TOL,
                  "cross decode")
-    fresh = TAdaptive(0.5)
+    fresh = TAdaptive(0.5, device="cpu")
     assert_close(fresh.intra_decode(t_packed, np.shape(img)), rec, RECON_TOL, "own decode")
     assert fresh.bounds == encoder.bounds
 
 
 def test_golden_rd_point(lena_small, lena):
     """Train on lena_small, code lena at q=0.15: the canonical ch3 point."""
-    codec = TIntra(quantization_scale=0.15)
+    codec = TIntra(quantization_scale=0.15, device="cpu")
     codec.train_huffman_from_image(lena_small)
     recon, _, bits, bpp = codec.encode_decode(lena, return_bpp=True)
     psnr = float(t_psnr(lena, recon))
@@ -425,7 +425,7 @@ def test_golden_rd_point(lena_small, lena):
 def test_from_reference_state_reproduces_jax_bytes(lena_small):
     j = JIntra(0.5)
     j.train_huffman_from_image(lena_small)
-    t = TIntra.from_reference_state(tintra.reference_state(j))
+    t = TIntra.from_reference_state(tintra.reference_state(j), device="cpu")
     assert t.bounds == j.bounds
     other = np.ascontiguousarray(fixtures.image("sail")[:64, :96])
     assert t.encode_to_container(other) == j.encode_to_container(other)
@@ -437,7 +437,7 @@ def test_device_decode_matches_jax_and_serial(lena_small):
     img = np.ascontiguousarray(lena_small[:64, :128])
     j = JIntra(0.5)
     j.train_huffman_from_image(img)
-    t = TIntra.from_reference_state(tintra.reference_state(j))
+    t = TIntra.from_reference_state(tintra.reference_state(j), device="cpu")
     x, shape = t._prepare(img, True)
     words, total, offs, valid, _ = t._encode_device(x)
     rec, ok = t.decode_device(words, offs, valid, shape)
@@ -458,10 +458,10 @@ def test_device_decode_matches_jax_and_serial(lena_small):
 def test_codec_errors(lena_small):
     img = lena_small[:32, :32]
     with pytest.raises(RuntimeError, match="Train"):
-        TIntra(1.0).encode_to_container(img)
+        TIntra(1.0, device="cpu").encode_to_container(img)
     with pytest.raises(RuntimeError, match="symbol count"):
-        TIntra(1.0).intra_decode(np.zeros(4, np.uint32), img.shape)
-    codec = TIntra(1.0)
+        TIntra(1.0, device="cpu").intra_decode(np.zeros(4, np.uint32), img.shape)
+    codec = TIntra(1.0, device="cpu")
     codec.train_huffman_from_image(img)
     symbols = codec.image2symbols(img)
     with pytest.raises(ValueError, match="zero-run decode failed"):
@@ -471,4 +471,4 @@ def test_codec_errors(lena_small):
     counts_at = len(blob) - 4 * int(payload.group_word_counts.sum()) - payload.block_counts.size
     blob[counts_at] = 1  # block 0 now ends before its EOB
     with pytest.raises(ValueError, match="container decode failed"):
-        TIntra.decode_from_container(bytes(blob))
+        TIntra.decode_from_container(bytes(blob), device="cpu")

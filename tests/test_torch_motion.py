@@ -21,6 +21,7 @@ from ivclab_tpu.ops.motion_pallas import motion_search_pallas
 
 import ivclab_tpu_torch.ops.motion as tmotion
 from ivclab_tpu_torch.runtime import cuda_build
+from ivclab_tpu_torch.utils.timing import motion_search_bound
 
 
 def _frames(rng, H, W, dy, dx, noise=0.5):
@@ -99,8 +100,104 @@ def test_compensate_matches_gather_on_any_field():
                  np.asarray(j_motion_compensate(ref, mv, 4)).view(np.int32), "vs gather MC")
 
 
-def test_kernel_build_is_content_addressed():
+def _integer_pair(rng, H, W):
+    ref = rng.integers(0, 256, (H, W)).astype(np.float32)
+    cur = (np.roll(ref, (3, -2), (0, 1)) + rng.integers(-3, 4, (H, W))).astype(np.float32)
+    return ref, cur
+
+
+@pytest.mark.parametrize("H,W,sr", [(64, 128, sr) for sr in range(1, 8)]
+                         + [(40, 56, 4), (40, 56, 7), (32, 96, 2)])
+def test_kernel_order_plain_matches_reference_and_jax(H, W, sr):
+    """Integer-valued and flat frames make every SSD exact, so the
+    kernel-order sum equals the plain reference and JAX's scan, ties
+    included."""
+    rng = np.random.default_rng(H * W + sr)
+    cases = {"integer": _integer_pair(rng, H, W),
+             "flat": (np.full((H, W), 100.0, np.float32), np.full((H, W), 120.0, np.float32))}
+    for name, (ref, cur) in cases.items():
+        got = tmotion.motion_search_kernel_order(to_torch(ref), to_torch(cur), sr)
+        assert got.dtype == torch.int32 and tuple(got.shape) == (H // 8, W // 8)
+        assert_exact(got, tmotion.motion_search_reference(to_torch(ref), to_torch(cur), sr),
+                     f"{name} vs plain reference")
+        assert_exact(got, j_motion_search(ref, cur, sr), f"{name} vs JAX scan")
+
+
+@pytest.mark.parametrize("sr", [1, 4, 7])
+def test_kernel_order_band_matches_band_reference(sr):
+    """Every band of a 64x128 frame in 4 bands, halo rows cut from the frame."""
+    H, W, band_h = 64, 128, 16
+    ref, cur = _integer_pair(np.random.default_rng(sr), H, W)
+    padded = np.pad(ref, ((sr, sr), (0, 0)))
+    bands = []
+    for i in range(H // band_h):
+        ext = to_torch(padded[i * band_h:(i + 1) * band_h + 2 * sr])
+        band = to_torch(cur[i * band_h:(i + 1) * band_h])
+        got = tmotion.motion_search_tile_kernel_order(ext, band, i * band_h, H, sr)
+        assert_exact(got, tmotion.motion_search_tile_reference(ext, band, i * band_h, H, sr),
+                     f"band {i}")
+        bands.append(got)
+    assert_exact(torch.cat(bands), tmotion.motion_search_kernel_order(
+        to_torch(ref), to_torch(cur), sr), "bands vs whole frame")
+
+
+@pytest.mark.parametrize("sr", [1, 4, 7])
+def test_band_halo_rows_outside_the_frame_do_not_matter(sr):
+    """A band's halo rows above row 0 or below the frame reach only masked
+    candidates: NaN there gives the indices zeros give, in both plain
+    versions (the kernel copies those rows too)."""
+    H, W, band_h = 64, 128, 16
+    ref, cur = _frames(np.random.default_rng(70 + sr), H, W, dy=1, dx=2)
+    padded = np.pad(ref, ((sr, sr), (0, 0)))
+    for i, outside in ((0, slice(0, sr)), (H // band_h - 1, slice(band_h + sr, band_h + 2 * sr))):
+        ext = padded[i * band_h:(i + 1) * band_h + 2 * sr].copy()
+        band = to_torch(cur[i * band_h:(i + 1) * band_h])
+        want = tmotion.motion_search_tile_kernel_order(to_torch(ext), band, i * band_h, H, sr)
+        ext[outside] = np.nan
+        for fn in (tmotion.motion_search_tile_kernel_order, tmotion.motion_search_tile_reference):
+            assert_exact(fn(to_torch(ext), band, i * band_h, H, sr), want, f"band {i}")
+
+
+@pytest.mark.parametrize("sr", [2, 4, 7])
+def test_kernel_order_plain_differs_from_reference_only_at_near_ties(sr):
+    """On float frames the two summation orders may flip only a near-tie:
+    the two chosen candidates' float64 SSDs within 1e-5 relative."""
+    H, W = 64, 128
+    rng = np.random.default_rng(100 + sr)
+    ref, cur = _frames(rng, H, W, dy=1, dx=-2, noise=0.01)
+    cur[:, :40] = np.round(cur[:, :40] * 4) / 4  # coarse values: many close SSDs
+    a = tmotion.motion_search_kernel_order(to_torch(ref), to_torch(cur), sr).numpy()
+    b = tmotion.motion_search_reference(to_torch(ref), to_torch(cur), sr).numpy()
+    total = 2 * sr + 1
+    ref64, cur64 = ref.astype(np.float64), cur.astype(np.float64)
+    for by, bx in np.argwhere(a != b):
+        blk = cur64[by * 8:by * 8 + 8, bx * 8:bx * 8 + 8]
+        ssd = []
+        for idx in (a[by, bx], b[by, bx]):
+            y0, x0 = by * 8 + idx // total - sr, bx * 8 + idx % total - sr
+            ssd.append(((blk - ref64[y0:y0 + 8, x0:x0 + 8]) ** 2).sum())
+        assert abs(ssd[0] - ssd[1]) <= 1e-5 * max(ssd[0], ssd[1], 1.0)
+
+
+def test_kernel_build_is_content_addressed(tmp_path):
     path = cuda_build.library_path("motion_search")
     assert path.parent == cuda_build.CSRC / "_build"
     assert path.name.startswith("motion_search_") and path.suffix == ".so"
     assert path == cuda_build.library_path("motion_search")
+    # another revision of the source builds beside it, under its own hash
+    other = tmp_path / "motion_search.cu"
+    other.write_text(cuda_build.CSRC.joinpath("motion_search.cu").read_text() + "\n")
+    built = cuda_build._hashed(other, cuda_build.NVCC_FLAGS, tmp_path)
+    built.touch()  # as if compiled: build_file reuses it without nvcc
+    assert cuda_build.build_file(other, tmp_path) == (built, "")
+    assert built.name != path.name and built.name.startswith("motion_search_")
+
+
+@pytest.mark.parametrize("rows,ref_rows,sr,want_us", [(1088, 1088, 4, 7.576), (272, 280, 4, 1.894),
+                                                      (272, 286, 7, 5.261)])
+def test_search_bound_counts_every_candidate(rows, ref_rows, sr, want_us):
+    """The least time on the H100 is the FP32 operations over the peak:
+    blocks x (2sr+1)^2 x 64 x 3 at 67 TFLOP/s."""
+    ms, by = motion_search_bound(ref_rows, rows, 1920, sr)
+    assert by == "operations"
+    assert ms * 1e3 == pytest.approx(want_us, abs=1e-3)

@@ -87,7 +87,7 @@ def test_exchange_row_halo_matches_jax(halo):
     fn = shard_map(lambda b: j_exchange_row_halo(b, halo, "tile"), mesh=mesh,
                    in_specs=P("tile"), out_specs=P("tile"), check_vma=False)
     want = np.asarray(jax.jit(fn)(x))
-    tmesh = tpar.make_mesh(2, 4)
+    tmesh = tpar.make_mesh(2, 4, device="cpu")
     got = tpar.exchange_row_halo(list(to_torch(x).chunk(4)), halo, tmesh)
     assert all(g.shape == (16 + 2 * halo, 48) for g in got)
     assert_exact(torch.cat(got).numpy().view(np.int32), want.view(np.int32), "halo bands")
@@ -118,8 +118,8 @@ def test_sharded_codec_matches_jax_and_the_fused_pack(foreman):
     jout = j_build_codec(jmesh, j, gop_len, band_h, W, cap=cap, group_words=gw,
                          block_words=bw)(j_shard_frames(y, jmesh))
 
-    t = TorchCodec.from_reference_state(reference_state(j))
-    tmesh = tpar.make_mesh(2, n_tile)
+    t = TorchCodec.from_reference_state(reference_state(j), device="cpu")
+    tmesh = tpar.make_mesh(2, n_tile, device="cpu")
     tout = tpar.build_sharded_video_codec(tmesh, t, gop_len, band_h, W, cap, gw, bw)(
         tpar.shard_frames(y, tmesh))
     for field in tout._fields:
@@ -134,7 +134,7 @@ def test_sharded_codec_matches_jax_and_the_fused_pack(foreman):
         sl = slice(g * gop_len, (g + 1) * gop_len)
         qsyms, mvs, _, _ = t.encode_gop(y[sl])
         assert blob == t.container_from_packed(t.pack_gop(qsyms), mvs, (gop_len, H, W))
-        recons, ok = TorchCodec.decode_from_container(blob)
+        recons, ok = TorchCodec.decode_from_container(blob, device="cpu")
         assert bool(ok)
         assert_close(recons, tout.recons[sl], RECON_TOL, f"GOP {g} container decode")
 
@@ -156,7 +156,7 @@ def test_sharded_encoder_matches_jax(foreman, codes):
                   mv_code=_Code(rng.integers(3, 9, 81)))
     jmesh = j_make_mesh(n_gop=2, n_tile=4)
     jrec, jbits = j_build_encoder(jmesh, 2, 72, 352, **kw)(j_shard_frames(y, jmesh))
-    tmesh = tpar.make_mesh(2, 4)
+    tmesh = tpar.make_mesh(2, 4, device="cpu")
     trec, tbits = tpar.build_sharded_video_encoder(tmesh, 2, 72, 352, **kw)(
         tpar.shard_frames(y, tmesh))
     assert_exact(tbits, np.asarray(jbits), "bits per frame")
@@ -172,7 +172,7 @@ def test_mesh_factorisation_matches_jax(n, n_gop, n_tile, want):
     assert _factor(n, n_gop, n_tile) == want
     jm = j_make_mesh(n_gop, n_tile, devices=jax.devices()[:n])
     assert (jm.shape["gop"], jm.shape["tile"]) == want
-    m = tpar.make_mesh(*want)
+    m = tpar.make_mesh(*want, device="cpu")
     assert m.shape == {"gop": want[0], "tile": want[1]} and not m.distributed
     assert m.local_shards() == [(g, i) for g in range(want[0]) for i in range(want[1])]
     assert m.device == torch.device("cpu")
@@ -188,16 +188,16 @@ def test_mesh_and_step_reject_what_they_cannot_run(monkeypatch):
         _factor(8, 3, None)
     with pytest.raises(RuntimeError):
         tpar.make_mesh(distributed=True)
-    mesh = tpar.make_mesh(1, 2)
+    mesh = tpar.make_mesh(1, 2, device="cpu")
     with pytest.raises(ValueError):
-        tpar.shard_frames(np.zeros((2, 24, 64), np.float32), tpar.make_mesh(1, 5))
+        tpar.shard_frames(np.zeros((2, 24, 64), np.float32), tpar.make_mesh(1, 5, device="cpu"))
     step = tpar.build_sharded_video_encoder(mesh, 2, 16, 64)
     shards = tpar.shard_frames(np.zeros((2, 32, 64), np.float32), mesh)
     with pytest.raises(ValueError):
         step({k: v for k, v in shards.items() if k != (0, 1)})
     with pytest.raises(ValueError):
         step({k: v[:1] for k, v in shards.items()})
-    codec = TorchCodec(1.0).train(np.zeros((2, 24, 64), np.float32))
+    codec = TorchCodec(1.0, device="cpu").train(np.zeros((2, 24, 64), np.float32))
     with pytest.raises(ValueError):  # 3x8 = 24 blocks per band: not whole pack groups
         tpar.build_sharded_video_codec(mesh, codec, 2, 24, 64, 32, 64, 4)
 

@@ -46,7 +46,7 @@ def main() -> int:
     frames = fixtures.video("dist", num_frames=T, shape=(H, W))
     y = np.ascontiguousarray(frames.astype(np.float32).mean(axis=-1))
     # the same deterministic training on every rank
-    codec = FusedVideoCodec(quantization_scale=1.0).train(y[:2])
+    codec = FusedVideoCodec(quantization_scale=1.0, device="cpu").train(y[:2])
     step = build_sharded_video_codec(mesh, codec, gop_len, H // 2, W, cap, gw, bw)
 
     blobs = []
