@@ -54,10 +54,29 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    and the host's pmf and Huffman tree inside its codebook training;
 8. profile: one warm ``encode_gop`` of phase 4 and one warm sharded step
    of phase 6 under ``torch.profiler``: device ms, kernel launches, and the
-   motion-search kernel's share.
+   motion-search kernel's share;
+9. the per-frame adaptive video codec at full width on CUDA: (a)
+   ``VideoCodec.encode_to_container`` (per-frame policy) of phase 4's 8
+   frames, decoded on the card within 1e-2 of the encoder's chain, PSNR-Y
+   above 28 dB, exactly 7 whole-frame kernel launches; (b) the same for
+   the adaptive policy, whose bits exceed (a)'s by exactly the codebook
+   charge; (c) the CPU port's bytes on 3 frames equal the card's (or every
+   differing symbol is a printed motion near-tie or rounding tie), and the
+   card's bytes decode on the CPU within 1e-2; (d) three RGB frames of the
+   facade ``encode_decode`` per policy, every blob decoded by
+   ``decode_frame_payload`` within 1e-2, one launch per P-frame; (e) warm
+   medians of the container encode, the device-resident decode and the
+   pipelined sequence coder, the encode's stages, and one profile each of
+   the encode and the decode;
+10. the sharded adaptive encoder at full width: ``ShardedAdaptiveEncoder``
+   on an in-process gop=2 x tile=4 mesh over phase 6's 16 frames, each
+   GOP's bytes equal to the single-device ``encode_to_container``'s and
+   decoded within 1e-2, exactly 56 band launches; warm medians against the
+   single-device encode of the same frames.
 
 The line before the last is a JSON list of the kernels with their launch
-counts, times and bounds; the last line is ``{"ok": true, "device": {...}}``.
+counts over every main path above, times and bounds; the last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -368,6 +387,286 @@ def intra_phase(dev, card: str) -> None:
           + f" (median of {INTRA_REPS}, host; {card})")
 
 
+def encoder_chain(codec, y_dev):
+    """The per-frame outputs of the recursion ``encode_to_container`` runs
+    (buffers, counts, bounds, histograms, motion fields, reconstructions),
+    for the checks; its kernel launches are not the main path's."""
+    from ivclab_tpu_torch.models.videocodec import _pframe_scan
+
+    qt, inv_qt = codec.intra_codec._tables(1)
+    return _pframe_scan(y_dev, range(y_dev.shape[0]), inv_qt, qt, codec.search_range,
+                        codec.end_of_block)
+
+
+def psnr_y(rec, y) -> float:
+    """Mean over frames of each frame's PSNR against the luma ``y``."""
+    import numpy as np
+
+    mse = ((rec.astype(np.float64) - y) ** 2).mean(axis=(1, 2))
+    return float(np.mean(20 * np.log10(255.0 / np.sqrt(np.maximum(mse, 1e-12)))))
+
+
+def adaptive_divergence(y3, codec_g, codec_c) -> bool:
+    """Phase 9(c) when the card's and the CPU's bytes differ: at the first
+    frame whose symbols differ, print each differing motion index as a
+    near-tie (both SSDs in float64) and each coefficient that rounds
+    differently under the same motion field as a rounding tie; later frames
+    descend from different references and are not compared. Returns True
+    when every difference is a tie."""
+    import numpy as np
+    import torch
+
+    from ivclab_tpu_torch.ops.motion import motion_compensate
+
+    outs = {}
+    for name, codec in (("cuda", codec_g), ("cpu", codec_c)):
+        outs[name] = [x.cpu() for x in encoder_chain(codec, torch.from_numpy(y3).to(codec.device))]
+    bufs_g, valid_g, *_, mvs_g, rec_g, _ = outs["cuda"]
+    bufs_c, valid_c, *_, mvs_c, rec_c, _ = outs["cpu"]
+    for t in range(y3.shape[0]):
+        if torch.equal(mvs_g[t], mvs_c[t]) and torch.equal(valid_g[t], valid_c[t]) \
+                and torch.equal(bufs_g[t], bufs_c[t]):
+            continue
+        ok = True
+        a, b = mvs_g[t].numpy(), mvs_c[t].numpy()
+        if t and (a != b).any():
+            ties = near_tie_gaps(rec_c[t - 1].numpy(), y3[t], a, b, codec_c.search_range)
+            for blk, ssd, gap in ties:
+                print(f"[adaptive] (c) frame {t} motion differs at block {blk}: CUDA ssd "
+                      f"{ssd[0]!r}, CPU ssd {ssd[1]!r}, relative gap {gap:.3e}")
+            ok = all(gap < 1e-5 for *_, gap in ties)
+        planes = []
+        for codec, rec in ((codec_g, rec_g), (codec_c, rec_c)):
+            yt = torch.from_numpy(y3[t]).to(codec.device)
+            if t:  # both under the CPU's motion field: only rounding can differ
+                yt = yt - motion_compensate(rec[t - 1].to(codec.device), mvs_c[t], 4)
+            planes.append(yt[:, :, None].contiguous())
+        ties = rounding_ties(planes[0], planes[1], codec_g.intra_codec, codec_c.intra_codec)
+        for n, k, qg, qc, s_gpu, s_cpu, s64, dist in ties:
+            print(f"[adaptive] (c) frame {t} block {n} coefficient {k}: CUDA {qg} (scaled "
+                  f"{s_gpu!r}), CPU {qc} (scaled {s_cpu!r}), float64 {s64!r}, {dist:.3e} "
+                  f"from k+1/2")
+        print(f"[adaptive] (c) frame {t} is the first that differs; frames after it are not "
+              f"compared")
+        return ok and all(tie[-1] < TIE_TOL for tie in ties)
+    return True
+
+
+ADAPTIVE_REPS = 5  # timed runs per adaptive entry point, after one warm-up
+
+
+def adaptive_phase(dev, card: str, y, rgb) -> int:
+    """Phase 9: ``VideoCodec`` at full width on CUDA (see the module doc).
+    Returns the whole-frame kernel launches of its main-path runs."""
+    import numpy as np
+    import torch
+
+    from ivclab_tpu_torch import VideoCodec, calc_psnr
+    from ivclab_tpu_torch.models import videocodec as vc
+    from ivclab_tpu_torch.ops import motion
+    from ivclab_tpu_torch.ops.transform import cap_slice
+    from ivclab_tpu_torch.ops.zerorun import BLOCK_CAP
+    from ivclab_tpu_torch.runtime.container import AdaptiveVideoPayload
+    from ivclab_tpu_torch.utils.timing import device_kernels
+
+    T, H, W = y.shape
+    y_dev = torch.from_numpy(y).to(dev)
+    launches = 0
+
+    # (a) and (b): each policy's container, decoded on the card
+    blobs = {}
+    for policy in ("per-frame", "adaptive"):
+        codec = VideoCodec(1.0, codebook_policy=policy, device=dev)
+        torch.cuda.synchronize()
+        motion.LAUNCHES = 0
+        blob = codec.encode_to_container(y_dev)
+        torch.cuda.synchronize()
+        n = motion.LAUNCHES
+        launches += n
+        rec, oks = VideoCodec.decode_from_container(blob, return_device=True, device=dev)
+        chain = encoder_chain(codec, y_dev)[6]
+        err = float((rec - chain).abs().max())
+        last = float((chain[-1] - codec.decoder_recon).abs().max())
+        ps = psnr_y(rec.cpu().numpy(), y)
+        p = AdaptiveVideoPayload.from_bytes(blob)
+        jax_ref = (" (the JAX package's per-frame container of the same frames: 2,050,144 "
+                   "bytes, 31.17 dB; BENCH_r05.json adaptive_1080p, motion searched on a TPU)"
+                   if policy == "per-frame" else "")
+        print(f"[adaptive] ({'a' if policy == 'per-frame' else 'b'}) {policy} {W}x{H} T={T} "
+              f"q=1.0 sr=4: {len(blob)} container bytes{jax_ref}, {p.payload_bits} "
+              f"payload bits, frame bits {[int(b) for b in p.frame_bits]}; decode on the card vs "
+              f"the encoder's chain max abs {err:.3e}, ok {bool(oks.all())}; PSNR-Y {ps:.4f} dB; "
+              f"whole-frame kernel launches {n} in encode_to_container")
+        check(bool(oks.all()) and err < 1e-2 and last < 1e-2,
+              f"{policy}: adaptive container decode mismatch {err}")
+        check(ps > 28.0, f"{policy}: PSNR-Y collapsed: {ps}")
+        check(n == T - 1, f"{policy}: {n} whole-frame launches in encode_to_container, not {T - 1}")
+        blobs[policy] = blob
+    pf = AdaptiveVideoPayload.from_bytes(blobs["per-frame"])
+    pa = AdaptiveVideoPayload.from_bytes(blobs["adaptive"])
+    charged = [int(a) - int(f) for a, f in zip(pa.frame_bits, pf.frame_bits)]
+    want = [0] + [8 * ((8 + cb.lengths.size) + 12) for cb, _ in pa.frames[1:]]
+    print(f"[adaptive] (b) adaptive - per-frame bits per frame {charged} = the serialized "
+          f"codebooks' charge {want}")
+    check(charged == want, "adaptive policy's codebook charge")
+
+    # (c) the CPU port on the first 3 frames
+    y3 = np.ascontiguousarray(y[:3])
+    cg = VideoCodec(1.0, device=dev)
+    cc = VideoCodec(1.0, device="cpu")
+    blob_g = cg.encode_to_container(torch.from_numpy(y3).to(dev))
+    blob_c = cc.encode_to_container(y3)
+    print(f"[adaptive] (c) 3 frames: CUDA {len(blob_g)} bytes, CPU {len(blob_c)} bytes, "
+          f"identical {blob_g == blob_c}")
+    if blob_g != blob_c:
+        check(adaptive_divergence(y3, cg, cc), "CUDA and CPU adaptive bytes differ by more than "
+                                               "motion near-ties and rounding ties")
+    rec_g = VideoCodec.decode_from_container(blob_g, return_device=True, device=dev)[0]
+    rec_c = VideoCodec.decode_from_container(blob_g, device="cpu")
+    gap = float(np.abs(rec_c - rec_g.cpu().numpy()).max())
+    print(f"[adaptive] (c) the CPU decode of the CUDA bytes vs the CUDA decode: max abs {gap:.3e}")
+    check(gap < 1e-2, f"CPU decode of the CUDA adaptive bytes mismatch {gap}")
+
+    # (d) the facade, three RGB frames per policy
+    for policy in ("per-frame", "adaptive", "first-p-frame"):
+        codec = VideoCodec(1.0, codebook_policy=policy, device=dev)
+        prev, per_frame, info = None, [], []
+        for t in range(3):
+            torch.cuda.synchronize()
+            motion.LAUNCHES = 0
+            out, blob, bits = codec.encode_decode(rgb[t], frame_num=t)
+            torch.cuda.synchronize()
+            per_frame.append(motion.LAUNCHES)
+            dec = VideoCodec.decode_frame_payload(blob, prev, device=dev)
+            err = float((dec - codec.decoder_recon).abs().max())
+            check(err < 1e-2, f"facade {policy} frame {t}: blob decode mismatch {err}")
+            check(out.device.type == dev.type and out.dtype == torch.uint8
+                  and tuple(out.shape) == rgb[t].shape,
+                  f"facade {policy}: bad RGB output")
+            info.append(f"{len(blob)} B / {bits} bits / {float(calc_psnr(rgb[t], out)):.3f} dB "
+                        f"/ decode max abs {err:.1e}")
+            prev = dec
+        launches += sum(per_frame)
+        print(f"[adaptive] (d) facade {policy} {W}x{H} RGB, 3 frames: {'; '.join(info)}; "
+              f"whole-frame launches per frame {per_frame}")
+        check(per_frame == [0, 1, 1], f"facade {policy}: launches {per_frame}, not [0, 1, 1]")
+
+    # (e) timing and one profile
+    codec = VideoCodec(1.0, device=dev)
+    blob = codec.encode_to_container(y_dev)
+    rgb_dev = torch.from_numpy(np.ascontiguousarray(rgb[:T])).to(dev)
+    stages = {
+        "encode_to_container": lambda: codec.encode_to_container(y_dev),
+        "decode_from_container(return_device=True)":
+            lambda: VideoCodec.decode_from_container(blob, return_device=True, device=dev),
+        "encode_decode_sequence_pipelined": lambda: codec.encode_decode_sequence_pipelined(rgb_dev),
+    }
+    med = {name: median_ms(fn, ADAPTIVE_REPS) for name, fn in stages.items()}
+    for name, ms in med.items():
+        print(f"[adaptive] (e) {W}x{H} T={T} per-frame {name}: {ms:.3f} ms per GOP (warm, "
+              f"synchronised, median of {ADAPTIVE_REPS}) = {T * H * W / ms / 1e3:.3f} Mpix/s "
+              f"({card})")
+    # encode_to_container's stages, each synchronised on its own
+    qt, inv_qt = codec.intra_codec._tables(1)
+    outs = vc._pframe_scan(y_dev, range(T), inv_qt, qt, 4, codec.end_of_block)
+    codes, vmax_np, mvs_np = codec._per_frame_codes(outs)
+    frames = [(outs[0][t], outs[1][t], cap_slice(int(vmax_np[t]), BLOCK_CAP), codes[t])
+              for t in range(T)]
+    packed = vc._pack_frames(frames)
+    parts = {
+        "device loop": lambda: vc._pframe_scan(y_dev, range(T), inv_qt, qt, 4, codec.end_of_block),
+        "statistics fetch and host codebooks": lambda: codec._per_frame_codes(outs),
+        "packs with their sidecar and word fetches": lambda: vc._pack_frames(frames),
+        "motion pack and serialisation": lambda: vc._adaptive_payload(
+            1.0, codec.end_of_block, 4, "per-frame", (T, H, W), codes, packed, mvs_np,
+            codec.motion_huffman.code),
+    }
+    part_ms = {name: median_ms(fn, ADAPTIVE_REPS) for name, fn in parts.items()}
+    print(f"[adaptive] (e) encode_to_container by stage, ms per GOP (median of {ADAPTIVE_REPS}): "
+          + ", ".join(f"{name} {ms:.3f}" for name, ms in part_ms.items()) + f" ({card})")
+
+    for label, fn, wall in (
+            ("encode_to_container", lambda: codec.encode_to_container(y_dev),
+             med["encode_to_container"]),
+            ("decode_from_container(return_device=True)",
+             stages["decode_from_container(return_device=True)"],
+             med["decode_from_container(return_device=True)"])):
+        kernels = device_kernels(fn)
+        total = sum(us for _, us in kernels)
+        by_name: dict = {}
+        for name, us in kernels:
+            n, s = by_name.get(name, (0, 0.0))
+            by_name[name] = (n + 1, s + us)
+        lead = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:5]
+        print(f"[profile] adaptive {label} {W}x{H} T={T}: {len(kernels)} kernel launches, "
+              f"{total / 1e3:.3f} device ms, busy share {total / 1e3 / wall:.3f} of the median "
+              f"wall time; leading: "
+              + "; ".join(f"{name[:60]} {s / 1e3:.3f} ms x{n}" for name, (n, s) in lead)
+              + f" ({card})")
+    return launches
+
+
+def sharded_adaptive_phase(dev, card: str, y6) -> int:
+    """Phase 10: ``ShardedAdaptiveEncoder`` on an in-process gop=2 x tile=4
+    mesh on the card. Returns the band kernel's launches in its main-path
+    run."""
+    import numpy as np
+    import torch
+
+    from ivclab_tpu_torch import VideoCodec
+    from ivclab_tpu_torch import parallel
+    from ivclab_tpu_torch.ops import motion
+
+    T6, H, W = y6.shape
+    n_gop, n_tile = 2, 4
+    gop_len, band_h = T6 // n_gop, H // n_tile
+    y6_dev = torch.from_numpy(y6).to(dev)
+    mesh = parallel.make_mesh(n_gop, n_tile, device=dev)
+    enc = parallel.ShardedAdaptiveEncoder(mesh, gop_len, band_h, W)
+    torch.cuda.synchronize()
+    motion.LAUNCHES = motion.TILE_LAUNCHES = 0
+    blobs = enc.encode(y6_dev)
+    torch.cuda.synchronize()
+    tile_launches, whole = motion.TILE_LAUNCHES, motion.LAUNCHES
+    print(f"[shard-adaptive] {W}x{H} T={T6} mesh gop={n_gop} x tile={n_tile} (bands of {band_h} "
+          f"rows) per-frame q=1.0 sr=4: band-kernel launches {tile_launches}, whole-frame "
+          f"launches {whole}, full-stride re-packs {enc.full_stride_frames}")
+    check(tile_launches == n_gop * (gop_len - 1) * n_tile and whole == 0,
+          f"sharded adaptive launches: {tile_launches} band, {whole} whole-frame")
+
+    single = VideoCodec(1.0, device=dev)
+    for g in range(n_gop):
+        gop = y6_dev[g * gop_len:(g + 1) * gop_len]
+        want = single.encode_to_container(gop)
+        rec, oks = VideoCodec.decode_from_container(blobs[g], return_device=True, device=dev)
+        err = float((rec - encoder_chain(single, gop)[6]).abs().max())
+        print(f"[shard-adaptive] GOP {g}: {len(blobs[g])} bytes, identical to the single-device "
+              f"encode_to_container {blobs[g] == want}; decode vs the encoder's chain max abs "
+              f"{err:.3e}, ok {bool(oks.all())}")
+        check(blobs[g] == want, f"GOP {g}: sharded adaptive bytes != single-device bytes")
+        check(bool(oks.all()) and err < 1e-2, f"GOP {g}: sharded adaptive decode mismatch {err}")
+
+    def single_pair():
+        for g in range(n_gop):
+            single.encode_to_container(y6_dev[g * gop_len:(g + 1) * gop_len])
+
+    times = {"sharded": [], "single": []}
+    for i in range(ADAPTIVE_REPS + 1):  # alternate; the first round is warm-up
+        for name, fn in (("sharded", lambda: enc.encode(y6_dev)), ("single", single_pair)):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            if i:
+                times[name].append((time.perf_counter() - t0) * 1e3)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    print(f"[shard-adaptive] warm ms per GOP pair (median of {ADAPTIVE_REPS}, synchronised): "
+          f"sharded encode {med['sharded']:.3f}, single-device encode_to_container x2 "
+          f"{med['single']:.3f} ({card})")
+    print(f"[shard-adaptive] ms samples: {json.dumps(times)}")
+    return tile_launches
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -439,7 +738,8 @@ def main() -> None:
             check(bad == 0, f"kernel != plain on flat frames {H}x{W} sr={sr}")
 
     T, H, W = 8, 1088, 1920
-    y = luma(fixtures.video("bench", T, (H, W)))
+    rgb = fixtures.video("bench", T, (H, W))
+    y = luma(rgb)
     fy = y[:2]
     R, C = torch.from_numpy(fy[0]).to(dev), torch.from_numpy(fy[1]).to(dev)
     a = motion.motion_search_cuda(R, C, 4).cpu().numpy()
@@ -729,6 +1029,12 @@ def main() -> None:
     profile_line(f"encode_gop 1920x1088 T={T}", lambda: codec.encode_gop(y_dev))
     profile_line(f"sharded step {W}x{H} T={T6} gop={n_gop} x tile={n_tile}",
                  lambda: step(parallel.shard_frames(y6_dev, mesh)))
+
+    # ------------------------- 9. the adaptive video codec at full width
+    launches += adaptive_phase(dev, card, y, rgb)
+
+    # ------------------------ 10. the sharded adaptive encoder at full width
+    tile_launches += sharded_adaptive_phase(dev, card, y6)
 
     print(json.dumps({"kernels": [{
         "name": "motion_search",

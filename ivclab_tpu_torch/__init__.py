@@ -10,6 +10,8 @@ engine at its first use, never at import.
 from ivclab_tpu_torch.entropy.huffman import HuffmanCoder
 from ivclab_tpu_torch.models.fastvideo import FusedVideoCodec
 from ivclab_tpu_torch.models.intracodec import IntraCodec, IntraCodecAdaptive
+from ivclab_tpu_torch.models.videocodec import VideoCodec
+from ivclab_tpu_torch.ops.motion import MotionCompensator
 from ivclab_tpu_torch.utils.metrics import calc_psnr
 
 __version__ = "0.1.0"
@@ -19,6 +21,8 @@ __all__ = [
     "HuffmanCoder",
     "IntraCodec",
     "IntraCodecAdaptive",
+    "MotionCompensator",
+    "VideoCodec",
     "calc_psnr",
     "__version__",
 ]

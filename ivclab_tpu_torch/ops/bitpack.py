@@ -98,13 +98,16 @@ def decode_tables(code: CanonicalCode, device="cuda"):
 
 
 def decode_blocks_device(words: torch.Tensor, block_bit_offsets: torch.Tensor,
-                         block_sym_counts: torch.Tensor, tables, max_syms: int) -> torch.Tensor:
+                         block_sym_counts: torch.Tensor, tables, max_syms: int,
+                         max_count: int | None = None) -> torch.Tensor:
     """Decode every block in parallel from one packed stream.
 
     ``block_bit_offsets[b]``: block b's first bit; ``block_sym_counts[b]``:
     the symbols to decode for it (at most ``max_syms`` are). ``tables``:
-    :func:`decode_tables`. Returns ``[B, max_syms]`` int32 0-based symbol
-    indices, zero past each block's count.
+    :func:`decode_tables`. ``max_count``, where the caller knows it from a
+    host copy of the counts, is their largest value (read from the device,
+    a synchronisation, when None). Returns ``[B, max_syms]`` int32 0-based
+    symbol indices, zero past each block's count.
 
     All blocks advance one symbol per step. A code's length is ``min_len``
     plus the number of left-justified group boundaries its window exceeds.
@@ -127,7 +130,9 @@ def decode_blocks_device(words: torch.Tensor, block_bit_offsets: torch.Tensor,
     B = offs.shape[0]
 
     out = torch.zeros((B, max_syms), dtype=torch.int32, device=dev)
-    n_steps = min(int(counts.max()), max_syms) if B else 0
+    if max_count is None:
+        max_count = int(counts.max()) if B else 0
+    n_steps = min(max_count, max_syms) if B else 0
     bitpos = offs
     for i in range(n_steps):
         win = bit_window32(words, bitpos)

@@ -1,7 +1,8 @@
 """Block motion estimation / compensation.
 
-Port of ``ivclab_tpu/ops/motion.py`` and of the band search of
-``ivclab_tpu/parallel/halo.py``. Full-search block matching returns, for
+Port of ``ivclab_tpu/ops/motion.py`` (with its ``MotionCompensator``
+facade) and of the band search of ``ivclab_tpu/parallel/halo.py``.
+Full-search block matching returns, for
 each 8x8 block of the current frame, the packed index
 ``(dy + sr) * (2 sr + 1) + (dx + sr)`` of the displaced reference block
 with the smallest SSD. Candidates that fall outside the frame are masked
@@ -30,6 +31,7 @@ from __future__ import annotations
 import ctypes
 import functools
 
+import numpy as np
 import torch
 
 # Kernel launches made in this process by ``motion_search_cuda`` (whole
@@ -262,8 +264,8 @@ def motion_search_tile(ref_ext: torch.Tensor, cur_tile: torch.Tensor, row0: int,
 
 def motion_compensate(ref_image: torch.Tensor, motion_idx: torch.Tensor,
                       search_range: int = 4) -> torch.Tensor:
-    """Displace the 8x8 tiles of the ``[H, W]`` plane ``ref_image`` by the
-    ``[H/8, W/8]`` packed motion field.
+    """Displace the 8x8 tiles of the ``[H, W]`` (or ``[H, W, C]``) image
+    ``ref_image`` by the ``[H/8, W/8]`` packed motion field.
 
     Per-pixel source coordinates come from each block's displacement,
     clipped to the frame. For the in-frame fields the encoder emits this
@@ -273,7 +275,7 @@ def motion_compensate(ref_image: torch.Tensor, motion_idx: torch.Tensor,
     sr = search_range
     block = BLOCK
     ref = ref_image.to(torch.float32)
-    H, W = ref.shape
+    H, W = ref.shape[:2]
     total = 2 * sr + 1
     mv = motion_idx.to(device=ref.device, dtype=torch.int64)
     dy = torch.div(mv, total, rounding_mode="floor") - sr
@@ -285,3 +287,31 @@ def motion_compensate(ref_image: torch.Tensor, motion_idx: torch.Tensor,
     yy = (rows + dy_pix).clamp(0, H - 1)
     xx = (cols + dx_pix).clamp(0, W - 1)
     return ref[yy, xx]
+
+
+class MotionCompensator:
+    """The course reference's motion facade (packed-index convention).
+
+    Takes and returns host numpy arrays, as the reference's class does; the
+    search and the compensation run on ``device`` (the kernel on the card).
+    """
+
+    def __init__(self, search_range: int = 4, device: str | torch.device = "cuda"):
+        self.search_range = int(search_range)
+        self.device = torch.device(device)
+
+    def _plane(self, x) -> torch.Tensor:
+        t = x if isinstance(x, torch.Tensor) else torch.from_numpy(np.asarray(x, np.float32))
+        return t.to(device=self.device, dtype=torch.float32).contiguous()
+
+    def compute_motion_vector(self, ref_image, image) -> np.ndarray:
+        """``[H/8, W/8, 1]`` packed motion indices of ``image`` against
+        ``ref_image`` (both ``[H, W]``)."""
+        mv = motion_search(self._plane(ref_image), self._plane(image), self.search_range)
+        return mv.cpu().numpy()[..., None].astype(int)
+
+    def reconstruct_with_motion_vector(self, ref_image, motion_vector) -> np.ndarray:
+        """Motion-compensated prediction from ``ref_image`` (``[H, W]`` or
+        ``[H, W, C]``) and a ``[H/8, W/8, 1]`` field."""
+        mv = torch.from_numpy(np.asarray(motion_vector)[..., 0].astype(np.int64))
+        return motion_compensate(self._plane(ref_image), mv, self.search_range).cpu().numpy()

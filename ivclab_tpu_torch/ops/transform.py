@@ -3,9 +3,11 @@
 Port of ``ivclab_tpu/ops/transform.py``: ``forward_symbolize`` (pixels ->
 zero-run symbol buffers), ``inverse_reconstruct`` (quantized coefficients
 -> pixels), ``symbol_histogram``, the full-alphabet Huffman packers of the
-intra codec (``pack_symbols``, one flat stream; ``pack_symbols_grouped``,
-16-block word-aligned groups), the hot/escape code mapping
-``map_codes_hot`` of the GOP codec, and the packers' sizing helpers.
+intra and adaptive video codecs (``pack_symbols``, one flat stream;
+``pack_symbols_grouped``, 16-block word-aligned groups;
+``pack_symbols_grouped_sized``, the same with sized buffers), the
+hot/escape code mapping ``map_codes_hot`` of the GOP codec, and the
+packers' sizing helpers.
 """
 
 from __future__ import annotations
@@ -133,6 +135,42 @@ def pack_symbols_grouped(buf: torch.Tensor, valid_len: torch.Tensor, enc_codes: 
     codes, lens = _code_table_lookup(buf, valid_len, enc_codes, enc_lens, lower_bound)
     group_words, group_bits, block_offsets = pack_codes_grouped_dense(
         codes, lens, PACK_GROUP, GROUP_WORDS)
+    return group_words, group_bits, block_offsets, group_bits.to(torch.int64).sum()
+
+
+# Speculative pack buckets of the per-frame adaptive paths: 1080p content at
+# q=1.0 uses up to about 51 words per 16-block group. Callers check the
+# buckets held from the returned group bits and offsets (exact whatever the
+# word buffers truncate) and re-pack full-stride with pack_symbols_grouped
+# where they did not. Callers read these names from this module when they
+# run (tests shrink them to force the fallback).
+ADAPTIVE_WPG = 128   # words per group
+ADAPTIVE_BW = 32     # words per block deposit buffer
+
+# The JAX package's fused (code << 6) | len table holds codes up to this length.
+FUSED_TABLE_MAX_LEN = 26
+
+
+def pack_symbols_grouped_sized(buf: torch.Tensor, valid_len: torch.Tensor,
+                               enc_codes: torch.Tensor, enc_lens: torch.Tensor, lower_bound,
+                               words_per_group: int, block_words: int,
+                               fuse_table: bool = False):
+    """Grouped pack into ``words_per_group``-word groups with
+    ``block_words``-word block buffers.
+
+    The same group-stream bits and offsets as :func:`pack_symbols_grouped`
+    wherever the buckets hold the content; ``lower_bound`` is an int or a
+    0-d tensor. ``fuse_table`` is accepted for the JAX signature and
+    ignored: there it selects one gather of a fused ``(code << 6) | len``
+    table, which halves TPU gathers and gives the same words as the two
+    lookups done here. Returns (group_words ``[G, words_per_group]`` int64
+    32-bit words, group_bits ``[G]``, block_offsets ``[N]`` at
+    ``words_per_group`` stride, total bits as a 0-d tensor).
+    """
+    del fuse_table
+    codes, lens = _code_table_lookup(buf, valid_len, enc_codes, enc_lens, lower_bound)
+    group_words, group_bits, block_offsets = pack_codes_grouped_dense(
+        codes, lens, PACK_GROUP, words_per_group, block_words)
     return group_words, group_bits, block_offsets, group_bits.to(torch.int64).sum()
 
 

@@ -2,7 +2,6 @@
 
 The JAX package's ``frame_sharding``/``plane_sharding`` (``NamedSharding``
 specs) have no counterpart: :func:`shard_frames` cuts the frames itself.
-``ShardedAdaptiveEncoder`` comes with the per-frame adaptive codec.
 """
 
 from ivclab_tpu_torch.parallel.halo import (
@@ -12,6 +11,7 @@ from ivclab_tpu_torch.parallel.halo import (
 )
 from ivclab_tpu_torch.parallel.mesh import Mesh, init_distributed, make_mesh
 from ivclab_tpu_torch.parallel.video import (
+    ShardedAdaptiveEncoder,
     ShardedGopStreams,
     assemble_video_payloads,
     build_sharded_video_codec,
@@ -22,6 +22,6 @@ from ivclab_tpu_torch.parallel.video import (
 __all__ = [
     "Mesh", "make_mesh", "init_distributed",
     "exchange_row_halo", "motion_search_tile", "motion_compensate_tile",
-    "ShardedGopStreams", "assemble_video_payloads",
+    "ShardedAdaptiveEncoder", "ShardedGopStreams", "assemble_video_payloads",
     "build_sharded_video_codec", "build_sharded_video_encoder", "shard_frames",
 ]

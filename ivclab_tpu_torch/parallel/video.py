@@ -1,6 +1,6 @@
 """GOP × tile sharded video coding with distributed entropy packing.
 
-Port of the fixed-codebook paths of ``ivclab_tpu/parallel/video.py``:
+Port of ``ivclab_tpu/parallel/video.py``:
 
 - the frame stack is split ``(gop, tile)``: independent GOPs across the
   ``gop`` axis (each opens with an I-frame, so the reconstruction
@@ -13,7 +13,9 @@ Port of the fixed-codebook paths of ``ivclab_tpu/parallel/video.py``:
   every shard's own blocks; the gathered group substreams concatenate
   band-major per frame, which is raster block order, so the streams equal
   ``FusedVideoCodec.pack_gop``'s on the same frames word for word, and
-  :func:`assemble_video_payloads` turns them into IVC1 bytes.
+  :func:`assemble_video_payloads` turns them into IVC1 bytes;
+- :class:`ShardedAdaptiveEncoder` does the same with per-frame codebooks,
+  and its bytes are ``VideoCodec.encode_to_container``'s.
 
 The JAX ``shard_map`` becomes a loop over the shards this process holds
 (all of them in-process, one per rank in distributed mode); ``psum`` over
@@ -30,9 +32,28 @@ import torch
 import torch.distributed as dist
 
 from ivclab_tpu_torch.models.fastvideo import EOB, PackedGop, _map_gop_hot, _symbolize
+from ivclab_tpu_torch.models.videocodec import (
+    _adaptive_payload,
+    _code_tables,
+    _in_group,
+    _sized_buckets_ok,
+    _stream_histogram,
+    _to_host,
+    _train_codes,
+    _uniform_mv_code,
+)
+from ivclab_tpu_torch.ops import transform as tf
+from ivclab_tpu_torch.ops.dct import require_full_fp32
 from ivclab_tpu_torch.ops.motion import BLOCK
 from ivclab_tpu_torch.ops.quant import quant_table_zigzag
-from ivclab_tpu_torch.ops.transform import PACK_GROUP, pack_grouped_sized
+from ivclab_tpu_torch.ops.transform import (
+    GROUP_WORDS,
+    PACK_GROUP,
+    cap_slice,
+    pack_grouped_sized,
+    pack_symbols_grouped,
+    symbol_histogram,
+)
 from ivclab_tpu_torch.ops.zerorun import BLOCK_CAP, zerorun_encode_blocks
 from ivclab_tpu_torch.parallel.halo import (
     exchange_row_halo,
@@ -40,6 +61,7 @@ from ivclab_tpu_torch.parallel.halo import (
     motion_search_tile,
 )
 from ivclab_tpu_torch.parallel.mesh import Mesh
+from ivclab_tpu_torch.runtime.container import GroupedSection, packer_wmax
 
 
 def shard_frames(frames_y, mesh: Mesh) -> dict:
@@ -117,16 +139,39 @@ def _band_recursion(shards: dict, mesh: Mesh, total_h: int, sr: int, qt, inv_qt)
     return out
 
 
-def _tile_psum(mesh: Mesh, local: dict) -> dict:
-    """Sum each GOP's per-tile values over its tiles; every shard of the GOP
-    gets the sum (JAX ``psum`` over ``tile``)."""
+_REDUCE = {
+    "sum": (lambda x, dim: x.sum(dim=dim, dtype=x.dtype), dist.ReduceOp.SUM),
+    "min": (torch.amin, dist.ReduceOp.MIN),
+    "max": (torch.amax, dist.ReduceOp.MAX),
+}
+
+
+def _tile_psum(mesh: Mesh, local: dict, op: str = "sum") -> dict:
+    """Reduce each GOP's per-tile values over its tiles (``op``: sum, min or
+    max); every shard of the GOP gets the result (JAX ``psum``, ``pmin``,
+    ``pmax`` over ``tile``)."""
+    fn, dist_op = _REDUCE[op]
     if not mesh.distributed:
-        sums = {g: sum(v for (gg, _), v in local.items() if gg == g) for g, _ in local}
-        return {(g, i): sums[g] for g, i in local}
+        out = {g: fn(torch.stack([v for (gg, _), v in local.items() if gg == g]), dim=0)
+               for g, _ in local}
+        return {(g, i): out[g] for g, i in local}
     ((g, i), v), = local.items()
     v = v.clone()
-    dist.all_reduce(v, group=mesh.tile_groups[g])
+    dist.all_reduce(v, op=dist_op, group=mesh.tile_groups[g])
     return {(g, i): v}
+
+
+def _gop_gather(mesh: Mesh, local: dict) -> dict:
+    """``{g: [tensor of tile 0, ..., tile n_tile - 1]}`` for each GOP this
+    process holds (an ``all_gather`` over the GOP's tile group in
+    distributed mode, where the tiles' tensors have one shape)."""
+    if not mesh.distributed:
+        return {g: [local[(g, i)] for i in range(mesh.n_tile)] for g in sorted({g for g, _ in local})}
+    ((g, _), v), = local.items()
+    v = v.contiguous()
+    parts = [torch.empty_like(v) for _ in range(mesh.n_tile)]
+    dist.all_gather(parts, v, group=mesh.tile_groups[g])
+    return {g: parts}
 
 
 def _all_shards(mesh: Mesh, local: dict) -> dict:
@@ -309,3 +354,171 @@ def assemble_video_payloads(codec, streams: ShardedGopStreams, gop_len: int) -> 
         )
         payloads.append(codec.container_from_packed(p, streams.mvs[sl], (gop_len, H, W)))
     return payloads
+
+
+class ShardedAdaptiveEncoder:
+    """GOP × tile sharded encoder with per-frame residual codebooks.
+
+    ``encode`` returns one ``AdaptiveVideoPayload`` per GOP, byte for byte
+    what the single-device ``VideoCodec.encode_to_container`` writes for that
+    GOP's frames:
+
+    - phase 1: every shard's I/P recursion with the halo exchange and the
+      band motion search (the kernel's band entry point on the card), the
+      transform once per frame over the local bands
+      (:func:`_band_recursion`), zero-run symbols and per-tile statistics,
+      reduced over the GOP's tiles (histograms summed, bounds and counts
+      min/max);
+    - on the host, each frame's canonical code from those statistics;
+    - phase 2: every shard packs its own blocks under the frame's code into
+      the speculative ``ADAPTIVE_WPG``/``ADAPTIVE_BW`` buckets; the gathered
+      sidecar decides frame by frame which frames re-pack full-stride (their
+      count in the last ``encode`` is ``full_stride_frames``); each frame's
+      used words are gathered and its section assembled from its global
+      offsets.
+
+    The JAX constructor's ``me_backend`` (Pallas or XLA on the TPU) has no
+    counterpart here: the band search dispatches on the tensors' device.
+    """
+
+    def __init__(self, mesh: Mesh, gop_len: int, band_h: int, width: int,
+                 quantization_scale: float = 1.0, search_range: int = 4,
+                 codebook_policy: str = "per-frame", eob: int = 4000):
+        if codebook_policy not in ("per-frame", "adaptive"):
+            raise ValueError("sharded adaptive encoder: policy must be 'per-frame' or 'adaptive'")
+        if band_h % BLOCK or width % BLOCK:
+            raise ValueError("band_h and width must be multiples of 8")
+        self.Nb = (band_h // BLOCK) * (width // BLOCK)
+        if self.Nb % PACK_GROUP:
+            raise ValueError(f"band blocks ({self.Nb}) must be a multiple of PACK_GROUP "
+                             f"({PACK_GROUP}) for byte-identity with the single-device pack")
+        self.mesh = mesh
+        self.gop_len = int(gop_len)
+        self.band_h = int(band_h)
+        self.width = int(width)
+        self.H = self.band_h * mesh.n_tile
+        self.q = float(quantization_scale)
+        self.sr = int(search_range)
+        self.eob = int(eob)
+        self.policy = codebook_policy
+        qt = quant_table_zigzag(self.q, 1)[0]
+        self.qt = torch.from_numpy(qt).to(mesh.device)
+        self.inv_qt = torch.from_numpy((1.0 / qt).astype(np.float32)).to(mesh.device)
+        self.mv_code = _uniform_mv_code(self.sr).code
+        self.full_stride_frames = 0
+
+    def _phase1(self, shards: dict):
+        """Symbols, motion fields and tile-reduced statistics of every local shard."""
+        mesh, L, Nb = self.mesh, self.gop_len, self.Nb
+        enc = _band_recursion(shards, mesh, self.H, self.sr, self.qt, self.inv_qt)
+        bufs, valids, mvs = {}, {}, {}
+        stats = {"mn": {}, "mx": {}, "hist": {}, "vmax": {}}
+        for key, (qsyms, mv, _) in enc.items():
+            buf, valid = zerorun_encode_blocks(qsyms.reshape(-1, 64), 64, self.eob, BLOCK_CAP)
+            bufs[key], valids[key], mvs[key] = buf.reshape(L, Nb, -1), valid.reshape(L, Nb), mv
+            per_frame = [_stream_histogram(bufs[key][t], valids[key][t]) for t in range(L)]
+            for j, name in enumerate(("mn", "mx", "hist")):
+                stats[name][key] = torch.stack([s[j] for s in per_frame])
+            stats["vmax"][key] = valids[key].amax(dim=1)
+        ops = {"mn": "min", "mx": "max", "hist": "sum", "vmax": "max"}
+        stats = {name: _tile_psum(mesh, v, ops[name]) for name, v in stats.items()}
+        return bufs, valids, mvs, stats
+
+    def _train(self, g: int, bufs: dict, valids: dict, stats: dict):
+        """The per-frame codes of GOP ``g`` and its frames' largest counts."""
+        keys = [k for k in bufs if k[0] == g]
+        mn_np, mx_np, hist_np, vmax_np = _to_host(
+            [stats[name][keys[0]] for name in ("mn", "mx", "hist", "vmax")])
+
+        def direct(t, lo, hi):  # bounds outside the full-range window
+            local = {k: symbol_histogram(bufs[k][t], valids[k][t], lo, hi) for k in keys}
+            return _tile_psum(self.mesh, local)[keys[0]]
+
+        return _train_codes(mn_np, mx_np, hist_np, direct), vmax_np
+
+    def encode(self, frames_y) -> list:
+        """``[n_gop * gop_len, H, W]`` float32 luma -> one adaptive container
+        (``bytes``) per GOP; in distributed mode every rank returns all of them."""
+        mesh, L, Gb = self.mesh, self.gop_len, self.Nb // PACK_GROUP
+        shards = shard_frames(frames_y, mesh)
+        _check_shards(shards, mesh, L, self.band_h, self.width)
+        if mesh.device.type == "cuda":
+            require_full_fp32()
+        bufs, valids, mvs, stats = self._phase1(shards)
+        gops = sorted({g for g, _ in bufs})
+        trained = {g: self._train(g, bufs, valids, stats) for g in gops}
+
+        wpg, bw = tf.ADAPTIVE_WPG, tf.ADAPTIVE_BW
+        tables = {g: _code_tables(trained[g][0], mesh.device) for g in gops}
+        packs = {}  # (g, i) -> per frame [words, group bits, offsets]
+        for (g, i) in bufs:
+            codes, vmax_np = trained[g]
+            packs[(g, i)] = [list(tf.pack_symbols_grouped_sized(
+                bufs[(g, i)][t][:, :cap_slice(int(vmax_np[t]), BLOCK_CAP)], valids[(g, i)][t],
+                *tables[g][t], codes[t].lower_bound, wpg, bw)[:3]) for t in range(L)]
+        strides = {g: [wpg] * L for g in gops}
+
+        def sidecar():
+            """Gathered (group bits [L, G], frame-global offsets [L, N]) per GOP."""
+            local = {}
+            for (g, i), per_frame in packs.items():
+                s = torch.tensor(strides[g], device=mesh.device)[:, None] * 32
+                offs = torch.stack([f[2].to(torch.int64) for f in per_frame]) + i * Gb * s
+                local[(g, i)] = torch.cat([torch.stack([f[1].to(torch.int64) for f in per_frame]),
+                                           offs], dim=1)
+            out = {}
+            for g, parts in _gop_gather(mesh, local).items():
+                gb = torch.cat([p[:, :Gb] for p in parts], dim=1)
+                out[g] = (gb, torch.cat([p[:, Gb:] for p in parts], dim=1))
+            return out
+
+        side = {g: _to_host(v) for g, v in sidecar().items()}
+        self.full_stride_frames = 0
+        for g in gops:
+            codes, _ = trained[g]
+            gb_np, offs_np = side[g]
+            for t in range(L):
+                if _sized_buckets_ok(gb_np[t], _in_group(offs_np[t], wpg), wpg, bw):
+                    continue
+                self.full_stride_frames += 1
+                strides[g][t] = GROUP_WORDS
+                for key in packs:
+                    if key[0] == g:
+                        packs[key][t] = list(pack_symbols_grouped(
+                            bufs[key][t], valids[key][t], *tables[g][t], codes[t].lower_bound)[:3])
+        if self.full_stride_frames:
+            side = {g: _to_host(v) for g, v in sidecar().items()}
+
+        wmax = {g: [packer_wmax(side[g][0][t], strides[g][t]) for t in range(L)] for g in gops}
+        local_words = {}
+        for key, per_frame in packs.items():
+            local_words[key] = torch.cat([f[0][:, :wmax[key[0]][t]].reshape(-1)
+                                          for t, f in enumerate(per_frame)])
+        gathered = _gop_gather(mesh, local_words)
+        counts = _gop_gather(mesh, valids)
+        motion = _gop_gather(mesh, mvs)
+        payloads = {}
+        for g in gops:
+            host = _to_host(gathered[g] + [torch.cat(counts[g], dim=1),
+                                           torch.cat(motion[g], dim=1)])
+            shard_words, (counts_np, mvs_np) = host[:-2], host[-2:]
+            gb_np, offs_np = side[g]
+            codes, _ = trained[g]
+            packed, off = [], 0
+            for t in range(L):
+                w = wmax[g][t]
+                frame_words = np.concatenate(
+                    [sw[off:off + Gb * w].reshape(Gb, w) for sw in shard_words])
+                off += Gb * w
+                section = GroupedSection.from_packer_sliced(
+                    frame_words, gb_np[t], offs_np[t], counts_np[t], PACK_GROUP,
+                    strides[g][t], w)
+                packed.append((section, int(gb_np[t].sum())))
+            payloads[g] = _adaptive_payload(self.q, self.eob, self.sr, self.policy,
+                                            (L, self.H, self.width), codes, packed, mvs_np,
+                                            self.mv_code)
+        if mesh.distributed:
+            everyone = [None] * dist.get_world_size()
+            dist.all_gather_object(everyone, payloads)
+            payloads = {g: p for d in everyone for g, p in d.items()}
+        return [payloads[g] for g in range(mesh.n_gop)]

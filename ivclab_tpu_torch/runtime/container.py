@@ -1,9 +1,8 @@
-"""IVC1 bitstream container: the intra codec's and the fused GOP codec's
-wire formats.
+"""IVC1 bitstream container: the wire formats of the intra codec, the fused
+GOP codec and the per-frame adaptive video codec.
 
-Port of the intra and video-GOP parts of ``ivclab_tpu/runtime/container.py``.
-The bytes are identical to the JAX package's; a blob written by either side
-parses on the other.
+Port of ``ivclab_tpu/runtime/container.py``. The bytes are identical to the
+JAX package's; a blob written by either side parses on the other.
 
 Intra (``IntraPayload``, one coded image or plane):
 
@@ -20,6 +19,11 @@ Video GOP (``VideoPayload``):
   codebooks   residual + motion-vector hot/escape codes (lower bound,
               alphabet size, hot alphabet indices, canonical lengths)
   sections    the grouped residual stream and the grouped MV stream
+
+Adaptive video GOP (``AdaptiveVideoPayload``) and P-frame
+(``PFramePayload``): per-frame residual codebooks (lower bound + canonical
+lengths) beside each frame's grouped residual stream, and a uniform-pmf MV
+codebook beside the grouped MV stream.
 
 A grouped section is word-aligned per-group substreams plus the per-block
 sidecar (u16 in-group bit offset + u8 symbol count) that lets every block
@@ -42,6 +46,8 @@ VERSION = 1
 KIND_INTRA = 0
 KIND_PLANE = 1
 KIND_VIDEO_GOP = 2
+KIND_VIDEO_ADAPTIVE = 3
+KIND_PFRAME = 4
 
 LAYOUT_CONTIGUOUS = 0
 LAYOUT_GROUPED = 1
@@ -295,24 +301,39 @@ class GroupedSection:
         """Assemble from the packer outputs (tensors or arrays).
 
         ``group_words`` holds 32-bit words (int64 tensors are masked words);
-        ``block_offsets`` are bit offsets into the flattened stream.
+        ``block_offsets`` are bit offsets into the flattened stream: the
+        unsliced case of :meth:`from_packer_sliced`.
         """
-        group_words = _numpy(group_words).reshape(-1, words_per_group).astype(np.uint32)
-        group_bits = _numpy(group_bits).reshape(-1).astype(np.int64)
-        gwc = ((group_bits + 31) // 32).astype(np.uint32)
-        base = np.arange(group_words.shape[0], dtype=np.int64) * (words_per_group * 32)
+        return cls.from_packer_sliced(group_words, group_bits, block_offsets, block_counts,
+                                      group_size, words_per_group, words_per_group)
+
+    @classmethod
+    def from_packer_sliced(cls, words, group_bits, block_offsets, block_counts,
+                           group_size: int, packer_stride: int, wmax: int):
+        """Assemble from width-sliced packer outputs (tensors or arrays).
+
+        ``words`` is the ``[G, wmax]`` slice of a packer's ``[G,
+        packer_stride]`` word buffer (the tail past every group's used
+        words is empty); ``block_offsets`` are the packer's global bit
+        offsets at ``packer_stride`` words per group, rebased here to the
+        in-group u16 sidecar offsets. Raises ``ValueError`` when an offset
+        does not fit the u16 sidecar.
+        """
+        gb = _numpy(group_bits).reshape(-1).astype(np.int64)
+        G = gb.shape[0]
+        base = np.arange(G, dtype=np.int64) * (packer_stride * 32)
         in_group = _numpy(block_offsets).reshape(-1).astype(np.int64) - np.repeat(
             base, group_size
         )
         if in_group.max(initial=0) >= 1 << 16:
             raise ValueError("in-group offset exceeds u16 sidecar range")
         return cls(
-            words=group_words,
-            group_word_counts=gwc,
+            words=_numpy(words).reshape(G, wmax).astype(np.uint32),
+            group_word_counts=((gb + 31) // 32).astype(np.uint32),
             block_offsets=in_group.astype(np.uint16),
             block_counts=_numpy(block_counts).reshape(-1).astype(np.uint8),
             group_size=group_size,
-            words_per_group=words_per_group,
+            words_per_group=wmax,
         )
 
     def device_views(self, device="cuda"):
@@ -402,6 +423,133 @@ class VideoPayload:
             [offs[:, 1:], (s.group_word_counts.astype(np.int64) * 32)[:, None]], axis=1
         )
         return int(((ends - offs).max() + 31) // 32) + 2
+
+
+@dataclass
+class AdaptiveVideoPayload:
+    """A coded GOP with per-frame residual codebooks: the wire format of the
+    ``per-frame`` and ``adaptive`` codebook policies, decodable from the
+    bytes alone.
+
+      header     magic, version, kind=KIND_VIDEO_ADAPTIVE, policy flag,
+                 q, eob, T/H/W, payload bit count, search range
+      mv         Huffman codebook (uniform-pmf canonical lengths) + the
+                 grouped MV stream of frames 1..T-1
+      frames     T x [residual codebook + grouped residual stream]
+
+    ``payload_bits`` and ``frame_bits`` follow the facade's rate accounting
+    (exact residual + MV code lengths, plus the serialized-codebook charge
+    on P-frames when ``policy == 1``, adaptive).
+    """
+
+    quantization_scale: float
+    eob: int
+    search_range: int
+    policy: int  # 0 = per-frame (codebooks uncharged), 1 = adaptive
+    shape: tuple  # (T, H, W)
+    payload_bits: int
+    frame_bits: np.ndarray  # [T] u64, per-frame bits (facade accounting)
+    mv_codebook: Codebook
+    mv: GroupedSection
+    frames: list  # [T] of (Codebook, GroupedSection)
+
+    def to_bytes(self) -> bytes:
+        T, H, W = self.shape
+        head = struct.pack(
+            "<4sHBBfiIIIQ",
+            MAGIC, VERSION, KIND_VIDEO_ADAPTIVE, self.policy,
+            self.quantization_scale, self.eob,
+            T, H, W, self.payload_bits,
+        ) + struct.pack("<B", self.search_range)
+        parts = [
+            head,
+            np.asarray(self.frame_bits, dtype="<u8").tobytes(),
+            self.mv_codebook.to_bytes(),
+            self.mv.to_bytes(),
+        ]
+        for cb, section in self.frames:
+            parts.append(cb.to_bytes())
+            parts.append(section.to_bytes())
+        return b"".join(parts)
+
+    @classmethod
+    def from_bytes(cls, data: bytes):
+        r = _Reader(memoryview(data))
+        magic, version, kind, policy, q, eob, T, H, W, pbits = r.unpack("<4sHBBfiIIIQ")
+        if magic != MAGIC:
+            raise ValueError("not an IVC1 container")
+        if version != VERSION:
+            raise ValueError(f"unsupported container version {version}")
+        if kind != KIND_VIDEO_ADAPTIVE:
+            raise ValueError(f"not an adaptive video container (kind={kind})")
+        if not (0 < T <= MAX_DIM and 0 < H <= MAX_DIM and 0 < W <= MAX_DIM):
+            raise ValueError(f"implausible GOP shape ({T}, {H}, {W})")
+        (sr,) = r.unpack("<B")
+        frame_bits = r.array("<u8", T, "frame bits")
+        mv_cb = Codebook.from_buffer(r)
+        mv = GroupedSection.from_buffer(r)
+        frames = [(Codebook.from_buffer(r), GroupedSection.from_buffer(r)) for _ in range(T)]
+        return cls(q, eob, sr, policy, (T, H, W), pbits, frame_bits, mv_cb, mv, frames)
+
+    @property
+    def container_bytes(self) -> int:
+        return len(self.to_bytes())
+
+
+@dataclass
+class PFramePayload:
+    """One coded P-frame of the facade ``VideoCodec.encode_decode``: both
+    codebooks (canonical lengths), the grouped MV stream and the grouped
+    residual stream; a decoder that holds the previous reconstruction needs
+    nothing else."""
+
+    quantization_scale: float
+    eob: int
+    search_range: int
+    shape: tuple  # (H, W)
+    payload_bits: int  # exact MV + residual code-length sum (the RD rate)
+    mv_codebook: Codebook
+    mv: GroupedSection
+    residual_codebook: Codebook
+    residual: GroupedSection
+
+    def to_bytes(self) -> bytes:
+        H, W = self.shape
+        head = struct.pack(
+            "<4sHBBfiIIQ",
+            MAGIC, VERSION, KIND_PFRAME, 0,
+            self.quantization_scale, self.eob, H, W, self.payload_bits,
+        ) + struct.pack("<B", self.search_range)
+        return b"".join([
+            head,
+            self.mv_codebook.to_bytes(),
+            self.mv.to_bytes(),
+            self.residual_codebook.to_bytes(),
+            self.residual.to_bytes(),
+        ])
+
+    @classmethod
+    def from_bytes(cls, data: bytes):
+        r = _Reader(memoryview(data))
+        magic, version, kind, _, q, eob, H, W, pbits = r.unpack("<4sHBBfiIIQ")
+        if magic != MAGIC:
+            raise ValueError("not an IVC1 container")
+        if version != VERSION:
+            raise ValueError(f"unsupported container version {version}")
+        if kind != KIND_PFRAME:
+            raise ValueError(f"not a P-frame container (kind={kind})")
+        if not (0 < H <= MAX_DIM and 0 < W <= MAX_DIM):
+            raise ValueError(f"implausible frame shape ({H}, {W})")
+        (sr,) = r.unpack("<B")
+        mv_cb = Codebook.from_buffer(r)
+        mv = GroupedSection.from_buffer(r)
+        res_cb = Codebook.from_buffer(r)
+        residual = GroupedSection.from_buffer(r)
+        return cls(q, eob, sr, (H, W), pbits, mv_cb, mv, res_cb, residual)
+
+    @property
+    def container_bytes(self) -> int:
+        return len(self.to_bytes())
 
 
 def packer_wmax(gb_np, packer_stride: int) -> int:

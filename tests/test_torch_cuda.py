@@ -10,7 +10,9 @@ It holds the kernel's two entry points (whole frames and halo-extended row
 bands) against their plain PyTorch versions on the card, the GOP codec's
 CUDA pack against its CPU pack, the sharded codec on the card against the
 fused pack, and the intra codec's CUDA container bytes against its CPU
-bytes; and it checks that the C++ entropy engine builds there. The CPU
+bytes; the adaptive video codec's bytes, launches and decodes on the card
+against its CPU bytes, and the sharded adaptive encoder against the
+single-device one; and it checks that the C++ entropy engine builds there. The CPU
 parity with the JAX package is in the other tests/test_torch_*.py files.
 """
 
@@ -26,7 +28,7 @@ from torch_parity import (  # noqa: F401
 )
 
 import ivclab_tpu_torch.ops.motion as tmotion
-from ivclab_tpu_torch import FusedVideoCodec, HuffmanCoder, IntraCodec
+from ivclab_tpu_torch import FusedVideoCodec, HuffmanCoder, IntraCodec, VideoCodec
 from ivclab_tpu_torch import parallel as tpar
 from ivclab_tpu_torch.models import intracodec as tintra
 from ivclab_tpu_torch.runtime import native
@@ -289,3 +291,53 @@ def test_native_engine_builds_on_the_gpu_machine(cuda_device):
     words, bits = coder.encode(msg)
     assert bits == float(coder.code.lengths[msg + 2].sum())
     assert np.array_equal(coder.decode(words, msg.size), msg)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["per-frame", "adaptive"])
+def test_adaptive_container_on_the_card_matches_cpu_bytes(cuda_device, policy):
+    """VideoCodec.encode_to_container at 256x480: one whole-frame launch per
+    P-frame, the CPU port's bytes, and both devices' decodes within 1e-2."""
+    y = luma(fixtures.video("bench", 4, (256, 480)))
+    g = VideoCodec(1.0, codebook_policy=policy, device=cuda_device)
+    before = tmotion.LAUNCHES
+    blob = g.encode_to_container(y)
+    torch.cuda.synchronize()
+    assert tmotion.LAUNCHES - before == 3
+    assert blob == VideoCodec(1.0, codebook_policy=policy, device="cpu").encode_to_container(y)
+    rec, oks = VideoCodec.decode_from_container(blob, return_device=True, device=cuda_device)
+    assert rec.is_cuda and bool(oks.all())
+    assert float((rec[-1] - g.decoder_recon).abs().max()) < 1e-2
+    rec_cpu = VideoCodec.decode_from_container(blob, device="cpu")
+    assert float(np.abs(rec.cpu().numpy() - rec_cpu).max()) < 1e-2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("policy", ["per-frame", "adaptive", "first-p-frame"])
+def test_facade_launches_one_search_per_p_frame(cuda_device, policy):
+    rgb = fixtures.video("bench", 3, (256, 480))
+    codec = VideoCodec(1.0, codebook_policy=policy, device=cuda_device)
+    counts, prev = [], None
+    for t in range(3):
+        before = tmotion.LAUNCHES
+        out, blob, _ = codec.encode_decode(rgb[t], frame_num=t)
+        torch.cuda.synchronize()
+        counts.append(tmotion.LAUNCHES - before)
+        assert out.is_cuda and out.dtype == torch.uint8
+        dec = VideoCodec.decode_frame_payload(blob, prev, device=cuda_device)
+        assert float((dec - codec.decoder_recon).abs().max()) < 1e-2
+        prev = dec
+    assert counts == [0, 1, 1]
+
+
+@pytest.mark.cuda
+def test_sharded_adaptive_encoder_on_the_card_matches_single_device(cuda_device):
+    y = luma(fixtures.video("bench", 4, (256, 480)))
+    mesh = tpar.make_mesh(2, 4, device=cuda_device)
+    before = tmotion.TILE_LAUNCHES
+    blobs = tpar.ShardedAdaptiveEncoder(mesh, 2, 64, 480).encode(y)
+    torch.cuda.synchronize()
+    assert tmotion.TILE_LAUNCHES - before == 2 * 1 * 4  # GOPs x P-frames x bands
+    for g in range(2):
+        single = VideoCodec(1.0, device=cuda_device).encode_to_container(y[2 * g:2 * g + 2])
+        assert blobs[g] == single

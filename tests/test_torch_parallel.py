@@ -17,6 +17,7 @@ from jax.sharding import PartitionSpec as P
 from torch_parity import RECON_TOL, assert_close, assert_exact, luma, reference_state, to_torch
 
 from ivclab_tpu.models.fastvideo import FusedVideoCodec as JaxCodec
+from ivclab_tpu.models.videocodec import VideoCodec as JaxVideo
 from ivclab_tpu.ops.motion_pallas import motion_search_tile_pallas
 from ivclab_tpu.parallel import (
     assemble_video_payloads as j_assemble,
@@ -32,7 +33,9 @@ from ivclab_tpu.parallel.halo import (
 )
 
 import ivclab_tpu_torch.ops.motion as tmotion
+import ivclab_tpu_torch.ops.transform as ttr
 from ivclab_tpu_torch import FusedVideoCodec as TorchCodec
+from ivclab_tpu_torch import VideoCodec as TorchVideo
 from ivclab_tpu_torch import parallel as tpar
 from ivclab_tpu_torch.parallel.mesh import _factor
 
@@ -137,6 +140,46 @@ def test_sharded_codec_matches_jax_and_the_fused_pack(foreman):
         recons, ok = TorchCodec.decode_from_container(blob, device="cpu")
         assert bool(ok)
         assert_close(recons, tout.recons[sl], RECON_TOL, f"GOP {g} container decode")
+
+
+@pytest.mark.parametrize("policy", ["per-frame", "adaptive"])
+def test_sharded_adaptive_encoder_matches_jax_single_device(foreman, policy):
+    """test_parallel.py's adaptive case (foreman 256x352, mesh 2x4, 3-frame
+    GOPs), held against the JAX package's single-device container bytes."""
+    y = luma(foreman[:6, :256, :352])
+    mesh = tpar.make_mesh(2, 4, device="cpu")
+    enc = tpar.ShardedAdaptiveEncoder(mesh, 3, 64, 352, codebook_policy=policy)
+    blobs = enc.encode(y)
+    assert len(blobs) == 2 and enc.full_stride_frames == 0
+    for g in range(2):
+        want = JaxVideo(1.0, codebook_policy=policy).encode_to_container(y[3 * g:3 * g + 3])
+        assert blobs[g] == want
+        assert_close(TorchVideo.decode_from_container(blobs[g], device="cpu"),
+                     JaxVideo.decode_from_container(want), RECON_TOL, f"GOP {g} decode")
+
+
+def test_sharded_adaptive_pack_fallback_gives_the_same_bytes(foreman, monkeypatch):
+    y = luma(foreman[:4, :256, :352])
+    mesh = tpar.make_mesh(2, 4, device="cpu")
+    want = tpar.ShardedAdaptiveEncoder(mesh, 2, 64, 352).encode(y)
+    monkeypatch.setattr(ttr, "ADAPTIVE_WPG", 8)
+    monkeypatch.setattr(ttr, "ADAPTIVE_BW", 2)
+    enc = tpar.ShardedAdaptiveEncoder(mesh, 2, 64, 352)
+    assert enc.encode(y) == want
+    assert enc.full_stride_frames == 4  # every frame took the full-stride re-pack
+    assert want[1] == TorchVideo(1.0, device="cpu").encode_to_container(y[2:])
+
+
+def test_sharded_adaptive_encoder_refusals():
+    mesh = tpar.make_mesh(1, 2, device="cpu")
+    with pytest.raises(ValueError, match="policy"):
+        tpar.ShardedAdaptiveEncoder(mesh, 2, 32, 64, codebook_policy="first-p-frame")
+    with pytest.raises(ValueError, match="PACK_GROUP"):
+        tpar.ShardedAdaptiveEncoder(mesh, 2, 24, 64)
+    with pytest.raises(ValueError, match="multiples of 8"):
+        tpar.ShardedAdaptiveEncoder(mesh, 2, 30, 64)
+    with pytest.raises(ValueError):
+        tpar.ShardedAdaptiveEncoder(mesh, 2, 32, 64).encode(np.zeros((3, 64, 64), np.float32))
 
 
 class _Code:

@@ -7,9 +7,12 @@ form a ``gop=1 × tile=2`` mesh over gloo, so the tile axis crosses the
 process boundary: the halo exchange, the per-frame bit reduction and the
 stream gather are real messages between the processes. Each rank packs its
 own band; rank 0 assembles the container bytes of two GOPs and writes them
-(length-prefixed) to the output path. Imports nothing of JAX.
+(length-prefixed) to the output path. With ``adaptive`` the ranks run
+``ShardedAdaptiveEncoder`` (per-frame codebooks) instead of the fixed-code
+codec. Imports nothing of JAX.
 
     python tests/torch_distributed_worker.py OUT CAP BLOCK_WORDS GROUP_WORDS
+    python tests/torch_distributed_worker.py OUT adaptive
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ import sys
 
 def main() -> int:
     out_path = sys.argv[1]
-    cap, bw, gw = (int(x) for x in sys.argv[2:5])
+    adaptive = sys.argv[2] == "adaptive"
 
     import numpy as np
     import torch
@@ -28,6 +31,7 @@ def main() -> int:
 
     from ivclab_tpu_torch import FusedVideoCodec
     from ivclab_tpu_torch.parallel import (
+        ShardedAdaptiveEncoder,
         assemble_video_payloads,
         build_sharded_video_codec,
         init_distributed,
@@ -45,14 +49,19 @@ def main() -> int:
     T, H, W, gop_len = 4, 64, 64, 2
     frames = fixtures.video("dist", num_frames=T, shape=(H, W))
     y = np.ascontiguousarray(frames.astype(np.float32).mean(axis=-1))
-    # the same deterministic training on every rank
-    codec = FusedVideoCodec(quantization_scale=1.0, device="cpu").train(y[:2])
-    step = build_sharded_video_codec(mesh, codec, gop_len, H // 2, W, cap, gw, bw)
-
     blobs = []
-    for g in range(T // gop_len):  # one GOP per step on a one-GOP mesh
-        streams = step(shard_frames(y[g * gop_len:(g + 1) * gop_len], mesh))
-        blobs += assemble_video_payloads(codec, streams, gop_len)
+    if adaptive:
+        enc = ShardedAdaptiveEncoder(mesh, gop_len, H // 2, W)
+        for g in range(T // gop_len):  # one GOP per call on a one-GOP mesh
+            blobs += enc.encode(y[g * gop_len:(g + 1) * gop_len])
+    else:
+        cap, bw, gw = (int(x) for x in sys.argv[2:5])
+        # the same deterministic training on every rank
+        codec = FusedVideoCodec(quantization_scale=1.0, device="cpu").train(y[:2])
+        step = build_sharded_video_codec(mesh, codec, gop_len, H // 2, W, cap, gw, bw)
+        for g in range(T // gop_len):  # one GOP per step on a one-GOP mesh
+            streams = step(shard_frames(y[g * gop_len:(g + 1) * gop_len], mesh))
+            blobs += assemble_video_payloads(codec, streams, gop_len)
     if dist.get_rank() == 0:
         with open(out_path, "wb") as f:
             for blob in blobs:

@@ -18,6 +18,9 @@ import numpy as np
 import pytest
 import torch
 
+# reads a JAX or port VideoCodec, mid-sequence too, for VideoCodec.from_reference_state
+from ivclab_tpu_torch.models.videocodec import reference_state as video_reference_state  # noqa: F401
+
 # tier-1 runs several pytest-xdist workers on one host
 torch.set_num_threads(1)
 
