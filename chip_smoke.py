@@ -15,9 +15,11 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    float fixture frames every mismatch must be a verified near-tie; bit
    for bit against the kernel-order plain version (which repeats the
    kernel's summation) on the float fixture, on random float frames at
-   288x352, 40x56 and 64x384 for sr 1..7 and on a 2-pixel-periodic
-   pattern where many candidates tie; times both at 1088x1920 (the
-   kernel by its device time in a ``torch.profiler`` trace);
+   288x352, 40x56 and 64x384 for sr 1..7, at 40x56, 64x384 and 1088x1920
+   for sr 8 and 15, and on a 2-pixel-periodic pattern where many
+   candidates tie; search range 16 is refused; times both at 1088x1920
+   (the kernel by its device time in a ``torch.profiler`` trace), and the
+   kernel at sr 8 and 15 beside their bounds;
 3. cross-device integer exactness: one set of symbols and motion fields
    packed and serialized on CUDA and on the CPU gives identical bytes, and
    the two decodes agree;
@@ -31,8 +33,9 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    and 7: exact on integer-valued and flat frames, near-ties only on the
    float fixture, and the bands together equal to the whole-frame kernel;
    bit for bit against the kernel-order plain version at every band of
-   phase 2's float and tie-heavy cases; bad row windows are refused; times
-   both on a 272x1920 band;
+   phase 2's float and tie-heavy cases (sr 8 and 15 included); bad row
+   windows are refused; times both on a 272x1920 band, and the kernel at
+   sr 8 and 15;
 6. the sharded path at full width: ``build_sharded_video_codec`` on an
    in-process gop=2 x tile=4 mesh on the card over 16 1920x1088 frames
    (two 8-frame GOPs, 272-row bands), against ``FusedVideoCodec.pack_gop``
@@ -67,12 +70,26 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    ``decode_frame_payload`` within 1e-2, one launch per P-frame; (e) warm
    medians of the container encode, the device-resident decode and the
    pipelined sequence coder, the encode's stages, and one profile each of
-   the encode and the decode;
+   the encode and the decode; (f) a codec at search range 8: 3 frames
+   whose bytes equal the CPU port's (or every differing symbol is a
+   printed near-tie), one launch per P-frame;
 10. the sharded adaptive encoder at full width: ``ShardedAdaptiveEncoder``
    on an in-process gop=2 x tile=4 mesh over phase 6's 16 frames, each
    GOP's bytes equal to the single-device ``encode_to_container``'s and
    decoded within 1e-2, exactly 56 band launches; warm medians against the
-   single-device encode of the same frames.
+   single-device encode of the same frames;
+11. the ch1/ch2 library at full width on CUDA, on lena tiled to 1088x1920
+   RGB (it runs no hand-written kernel): (a) ``PredictiveCodec`` at q=1
+   and q=4 with subsampled chroma, the decoder's wavefront rebuilding the
+   encoder's reconstruction exactly, the total bits equal to the CPU
+   port's and the RGB within 1 level of it; (b) ``three_pixels_predictor``
+   with and without subsampling and ``min_entropy_predictor`` equal to the
+   CPU port's; (c) ``yuv420compression`` (above 30 dB), ``ict_compression``
+   in both chroma modes and ``FilterPipeline.filter_img`` within 1 level
+   of the CPU port's (2 for the ICT's fft mode, which rounds between two
+   FFTs); (d) warm medians of every entry point above, and
+   profiles of ``PredictiveCodec.encode_decode``, one luma wavefront and
+   the IIR decimate (device ms, launches, busy share).
 
 The line before the last is a JSON list of the kernels with their launch
 counts over every main path above, times and bounds; the last line is
@@ -134,14 +151,17 @@ def band_of(ref, cur, i: int, band_h: int, sr: int):
 def kernel_order_cases(fy):
     """(label, ref, cur, sr, band height) of the bit-for-bit checks against
     the kernel-order plain version: the float fixture pair, random float
-    frames at three sizes for every sr, and a 2-pixel-periodic pattern on
-    which every even displacement ties."""
+    frames at three sizes for sr 1..7 and at 40x56, 64x384 and 1088x1920
+    for sr 8 and 15, and a 2-pixel-periodic pattern on which every even
+    displacement ties."""
     import numpy as np
 
     rng = np.random.default_rng(SEED + 1)
     cases = [("float fixture 1088x1920 sr=4", fy[0], fy[1], 4, 272)]
-    for H, W, band_h in ((288, 352, 144), (40, 56, 8), (64, 384, 16)):
-        for sr in range(1, 8):
+    sizes = [((288, 352, 144), range(1, 8)), ((40, 56, 8), (*range(1, 8), 8, 15)),
+             ((64, 384, 16), (*range(1, 8), 8, 15)), ((1088, 1920, 272), (8, 15))]
+    for (H, W, band_h), srs in sizes:
+        for sr in srs:
             ref = (rng.random((H, W)) * 255).astype(np.float32)
             cur = (np.roll(ref, (2, -3), (0, 1)) + rng.normal(0, 0.3, (H, W))).astype(np.float32)
             cases.append((f"random float {H}x{W} sr={sr}", ref, cur, sr, band_h))
@@ -439,7 +459,8 @@ def adaptive_divergence(y3, codec_g, codec_c) -> bool:
         for codec, rec in ((codec_g, rec_g), (codec_c, rec_c)):
             yt = torch.from_numpy(y3[t]).to(codec.device)
             if t:  # both under the CPU's motion field: only rounding can differ
-                yt = yt - motion_compensate(rec[t - 1].to(codec.device), mvs_c[t], 4)
+                yt = yt - motion_compensate(rec[t - 1].to(codec.device), mvs_c[t],
+                                            codec_c.search_range)
             planes.append(yt[:, :, None].contiguous())
         ties = rounding_ties(planes[0], planes[1], codec_g.intra_codec, codec_c.intra_codec)
         for n, k, qg, qc, s_gpu, s_cpu, s64, dist in ties:
@@ -603,6 +624,29 @@ def adaptive_phase(dev, card: str, y, rgb) -> int:
               f"wall time; leading: "
               + "; ".join(f"{name[:60]} {s / 1e3:.3f} ms x{n}" for name, (n, s) in lead)
               + f" ({card})")
+
+    # (f) a codec at search range 8 on 3 frames against the CPU port
+    c8 = VideoCodec(1.0, search_range=8, device=dev)
+    y3_dev = torch.from_numpy(y3).to(dev)
+    torch.cuda.synchronize()
+    motion.LAUNCHES = 0
+    blob8 = c8.encode_to_container(y3_dev)
+    torch.cuda.synchronize()
+    n8 = motion.LAUNCHES
+    launches += n8
+    c8_cpu = VideoCodec(1.0, search_range=8, device="cpu")
+    blob8_cpu = c8_cpu.encode_to_container(y3)
+    rec8 = VideoCodec.decode_from_container(blob8, return_device=True, device=dev)[0]
+    err8 = float((rec8 - encoder_chain(c8, y3_dev)[6]).abs().max())
+    print(f"[adaptive] (f) search range 8, 3 frames: CUDA {len(blob8)} bytes, CPU "
+          f"{len(blob8_cpu)} bytes, identical {blob8 == blob8_cpu}; whole-frame launches {n8}; "
+          f"decode vs the encoder's chain max abs {err8:.3e}; PSNR-Y "
+          f"{psnr_y(rec8.cpu().numpy(), y3):.4f} dB")
+    check(n8 == 2, f"search range 8: {n8} whole-frame launches, not 2")
+    check(err8 < 1e-2, f"search range 8: decode mismatch {err8}")
+    if blob8 != blob8_cpu:
+        check(adaptive_divergence(y3, c8, c8_cpu), "CUDA and CPU bytes at search range 8 differ "
+                                                   "by more than near-ties")
     return launches
 
 
@@ -666,6 +710,140 @@ def sharded_adaptive_phase(dev, card: str, y6) -> int:
     print(f"[shard-adaptive] ms samples: {json.dumps(times)}")
     return tile_launches
 
+
+LIBRARY_REPS = 5  # timed runs per ch1/ch2 entry point, after one warm-up
+
+
+def uint8_gap(a, b) -> tuple[int, int]:
+    """(largest level difference, count of differing values) of two uint8 images."""
+    d = (a.cpu().int() - b.cpu().int()).abs()
+    return int(d.max()), int((d > 0).sum())
+
+
+def profile_summary(fn, wall_ms: float) -> str:
+    """Device ms, kernel launches and busy share (device ms / wall ms) of one
+    call of ``fn`` under torch.profiler."""
+    from ivclab_tpu_torch.utils.timing import device_kernels
+
+    kernels = device_kernels(fn)
+    total = sum(us for _, us in kernels) / 1e3
+    return (f"{len(kernels)} kernel launches, {total:.3f} device ms, busy share "
+            f"{total / wall_ms:.3f} of the median wall time")
+
+
+def library_phase(dev, card: str, H: int = 1088, W: int = 1920) -> None:
+    """Phase 11: the ch1/ch2 library at full width on CUDA (see the module
+    doc); it runs no hand-written kernel."""
+    import numpy as np
+    import torch
+
+    from ivclab_tpu_torch import (
+        FilterPipeline,
+        PredictiveCodec,
+        calc_psnr,
+        ict_compression,
+        min_entropy_predictor,
+        three_pixels_predictor,
+        yuv420compression,
+    )
+    from ivclab_tpu_torch.models.predictive import COEFFS_CBCR, COEFFS_Y
+    from ivclab_tpu_torch.ops.predictive import predict_from_neighbors, reconstruct_from_residual
+    from ivclab_tpu_torch.ops.resample import _decimate_iir
+    from ivclab_tpu_torch.utils import fixtures
+
+    img = np.ascontiguousarray(np.tile(fixtures.image("lena"), (3, 4, 1))[:H, :W])
+    img_dev = torch.from_numpy(img).to(dev)
+    wall = {}
+
+    # (a) PredictiveCodec, subsampled chroma, q = 1 and 4
+    for q in (1.0, 4.0):
+        codec = PredictiveCodec(q, subsample_chroma=True, device=dev)
+        rec, bits, bpp = codec.encode_decode(img_dev, return_bpp=True)
+        (res_y, rec_y, y), (res_c, rec_c, cbcr) = codec._residuals(img_dev)
+        inv_y = reconstruct_from_residual(res_y, y[0], y[:, 0], COEFFS_Y, q)
+        inv_c = reconstruct_from_residual(res_c, cbcr[0], cbcr[:, 0], COEFFS_CBCR, q)
+        gap_dec = max(float((inv_y - rec_y).abs().max()), float((inv_c - rec_c).abs().max()))
+        rec_cpu, bits_cpu = PredictiveCodec(q, subsample_chroma=True,
+                                            device="cpu").encode_decode(img)
+        worst, n = uint8_gap(rec, rec_cpu)
+        print(f"[library] (a) PredictiveCodec {W}x{H} q={q:g} subsampled chroma: {bits} bits "
+              f"({bpp:.6f} bpp), CPU port {bits_cpu} bits; PSNR {float(calc_psnr(img, rec)):.4f} "
+              f"dB; decoder wavefront vs encoder reconstruction max abs {gap_dec:.1e}; RGB vs the "
+              f"CPU port: {n} values differ, by at most {worst}")
+        check(rec.device.type == dev.type and rec.dtype == torch.uint8 and tuple(rec.shape) == img.shape,
+              "PredictiveCodec: bad RGB output")
+        check(gap_dec == 0.0, f"PredictiveCodec q={q}: the decoder's wavefront differs {gap_dec}")
+        check(bits == bits_cpu, f"PredictiveCodec q={q}: {bits} bits on CUDA, {bits_cpu} on CPU")
+        check(worst <= 1 and n <= 2e-4 * rec.numel(),
+              f"PredictiveCodec q={q}: {n} RGB values differ by up to {worst} levels from the CPU's")
+        wall[f"PredictiveCodec.encode_decode q={q:g}"] = (
+            lambda c=codec: c.encode_decode(img_dev))
+
+    # (b) the predictors against the CPU port
+    for sub in (False, True):
+        got = three_pixels_predictor(img_dev, sub, device=dev)
+        want = three_pixels_predictor(img, sub, device="cpu")
+        same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+        print(f"[library] (b) three_pixels_predictor subsample={sub}: residuals {tuple(got[0].shape)}"
+              f" and {tuple(got[1].shape)} equal the CPU port's {same}")
+        check(same, f"three_pixels_predictor subsample={sub}: CUDA != CPU")
+        wall[f"three_pixels_predictor subsample={sub}"] = (
+            lambda sub=sub: three_pixels_predictor(img_dev, sub, device=dev))
+    gray = np.ascontiguousarray(img.mean(axis=-1).astype(np.uint8))
+    got = min_entropy_predictor(gray, device=dev)
+    want = min_entropy_predictor(gray, device="cpu")
+    same = all(torch.equal(g.cpu(), w) for g, w in zip(got, want))
+    print(f"[library] (b) min_entropy_predictor: residuals and prediction equal the CPU port's "
+          f"{same}")
+    check(same, "min_entropy_predictor: CUDA != CPU")
+    gray_dev = torch.from_numpy(gray).to(dev)
+    wall["min_entropy_predictor"] = lambda: min_entropy_predictor(gray_dev, device=dev)
+
+    # (c) the chroma-subsampling codecs and the filter pipeline. cuFFT and
+    # pocketfft round the FFT otherwise, so a value next to k + 1/2 before
+    # a rounding may land either way: 1 level in the RGB, 2 for the ICT's
+    # fft mode, which rounds the FFT-downsampled chroma and then upsamples
+    # it (one chroma level is up to 1.772 RGB levels)
+    pipe, pipe_cpu = FilterPipeline(device=dev), FilterPipeline(device="cpu")
+    for name, fn, cpu_fn, levels in (
+            ("yuv420compression", lambda x: yuv420compression(x, device=dev),
+             lambda x: yuv420compression(x, device="cpu"), 1),
+            ("ict_compression fft", lambda x: ict_compression(x, "fft", device=dev),
+             lambda x: ict_compression(x, "fft", device="cpu"), 2),
+            ("ict_compression fir", lambda x: ict_compression(x, "fir", device=dev),
+             lambda x: ict_compression(x, "fir", device="cpu"), 1),
+            ("FilterPipeline.filter_img", pipe.filter_img, pipe_cpu.filter_img, 1)):
+        out = fn(img_dev)
+        worst, n = uint8_gap(out, cpu_fn(img))
+        psnr = float(calc_psnr(img, out))
+        print(f"[library] (c) {name} {W}x{H}: PSNR {psnr:.4f} dB; vs the CPU port {n} of "
+              f"{out.numel()} values differ, by at most {worst} (limit {levels})")
+        check(out.device.type == dev.type and out.dtype == torch.uint8
+              and tuple(out.shape) == img.shape, f"{name}: bad output")
+        check(worst <= levels and n <= 2e-4 * out.numel(),
+              f"{name}: {n} values differ by up to {worst} levels from the CPU port")
+        if name == "yuv420compression":
+            check(psnr > 30.0, f"yuv420compression PSNR {psnr}")
+        wall[name] = lambda fn=fn: fn(img_dev)
+
+    # (d) warm medians and profiles
+    med = {name: median_ms(fn, LIBRARY_REPS) for name, fn in wall.items()}
+    for name, ms in med.items():
+        print(f"[library] (d) {W}x{H} {name}: {ms:.3f} ms (warm, synchronised, median of "
+              f"{LIBRARY_REPS}) ({card})")
+    y_dev = img_dev.float().mean(-1, keepdim=True).contiguous()
+    cbcr_dev = y_dev.expand(H, W, 2).contiguous()
+    wave_ms = median_ms(lambda: predict_from_neighbors(y_dev, COEFFS_Y), LIBRARY_REPS)
+    iir_ms = median_ms(lambda: _decimate_iir(_decimate_iir(cbcr_dev, 0), 1), LIBRARY_REPS)
+    for label, fn, ms in (
+            ("PredictiveCodec.encode_decode q=1",
+             wall["PredictiveCodec.encode_decode q=1"], med["PredictiveCodec.encode_decode q=1"]),
+            (f"one luma wavefront {W}x{H} q=1 ({H + W - 3} diagonals), {wave_ms:.3f} ms",
+             lambda: predict_from_neighbors(y_dev, COEFFS_Y), wave_ms),
+            (f"the IIR decimate of two {W}x{H} planes by 2 per axis (filtfilt: 2 x "
+             f"{H + 54} + 2 x {W + 54} steps), {iir_ms:.3f} ms",
+             lambda: _decimate_iir(_decimate_iir(cbcr_dev, 0), 1), iir_ms)):
+        print(f"[profile] library {label}: {profile_summary(fn, ms)} ({card})")
 
 def main() -> None:
     import numpy as np
@@ -777,6 +955,21 @@ def main() -> None:
     print(f"[me] 1088x1920 sr=4 kernel {kernel_us} us device (mean of 50 launches), {event_ms} ms "
           f"per call (CUDA events, host enqueue included), plain {plain_ms} ms; bound "
           f"{me_bound[0] * 1e3:.3f} us ({me_bound[1]}), {me_bound[0] / me_ms:.3f} of it ({card})")
+    for sr in (8, 15):
+        motion.motion_search_cuda(R, C, sr)
+        us = float(np.mean(kernel_device_us(lambda: motion.motion_search_cuda(R, C, sr), 20,
+                                            "me_kernel")))
+        bound = motion_search_bound(H, H, W, sr)
+        print(f"[me] 1088x1920 sr={sr} kernel {us:.3f} us device (mean of 20 launches); bound "
+              f"{bound[0] * 1e3:.3f} us ({bound[1]}), {bound[0] * 1e3 / us:.3f} of it ({card})")
+    before = motion.LAUNCHES
+    try:
+        motion.motion_search_cuda(R, C, 16)
+    except ValueError as e:
+        print(f"[me] sr=16 refused: {e}")
+    else:
+        fail("the kernel took search_range 16")
+    check(motion.LAUNCHES == before, "a refused search range counted a launch")
 
     # ------------------------------------- 3. cross-device integer exactness
     small = luma(fixtures.video("bench", 4, (256, 480)))
@@ -951,6 +1144,16 @@ def main() -> None:
           f"{tile_event_ms} ms per call (CUDA events), plain {tile_plain_ms} ms; bound "
           f"{band_bound[0] * 1e3:.3f} us ({band_bound[1]}), {band_bound[0] / band_ms:.3f} of it "
           f"({card})")
+    for sr in (8, 15):
+        ext_s, band_s = band_of(R, C, 1, band_h, sr)
+        motion.motion_search_tile_cuda(ext_s, band_s, band_h, H, sr)
+        us = float(np.mean(kernel_device_us(
+            lambda: motion.motion_search_tile_cuda(ext_s, band_s, band_h, H, sr), 20,
+            "me_kernel")))
+        bound = motion_search_bound(band_h + 2 * sr, band_h, W, sr)
+        print(f"[band] {band_h}x{W} band sr={sr} kernel {us:.3f} us device (mean of 20 launches); "
+              f"bound {bound[0] * 1e3:.3f} us ({bound[1]}), {bound[0] * 1e3 / us:.3f} of it "
+              f"({card})")
 
     # ------------------------------------- 6. the sharded path at full width
     from ivclab_tpu_torch import parallel
@@ -1035,6 +1238,9 @@ def main() -> None:
 
     # ------------------------ 10. the sharded adaptive encoder at full width
     tile_launches += sharded_adaptive_phase(dev, card, y6)
+
+    # ---------------------------- 11. the ch1/ch2 library at full width
+    library_phase(dev, card)
 
     print(json.dumps({"kernels": [{
         "name": "motion_search",

@@ -75,6 +75,14 @@
 // The row loop issues 227 instructions for its 216 FP32 operations; what
 // is left above the issue floor is the first tile's load, the last tiles
 // of an SM running with fewer warps, and the per-tile combine.
+//  5. Wide search ranges (sr = 8..15, up to 31 warps and 992 threads a CTA,
+//     which leaves a thread 64 registers). A lane cannot hold 2*sr+1
+//     accumulators beside its window, so it scans its dy's candidates in
+//     passes of at most 8 dx over the block's rows, carrying its strict-<
+//     minimum from pass to pass in dx order; each SSD is summed exactly as
+//     in one pass. The halo is sr rounded up to a multiple of 4 columns, and
+//     a CTA's two buffers take up to 139 KB of shared memory at sr = 15
+//     (one CTA per SM there, two at sr = 8).
 // Each candidate's SSD is summed as before: rows r = 0..7 outer, columns
 // k = 0..7 inner, __fsub_rn, __fmul_rn and __fadd_rn from 0.f, so the
 // indices equal the one-thread-per-block kernel's on every finite input.
@@ -110,19 +118,22 @@ constexpr int CUR_BOX_W = TILE_W + 8;   // columns of a current box (>= TILE_W +
 constexpr int CUR_HALF_BYTES = HALF * CUR_BOX_W * 4;  // a multiple of 128
 constexpr int CUR_BOX_BYTES = 2 * CUR_HALF_BYTES;
 
+constexpr int MAX_SR = 15;              // the largest search range instantiated
+constexpr int SM_SMEM = 233472;         // shared memory of one SM (228 KB)
+constexpr int CTA_SMEM_RESERVED = 1024; // the runtime's share of each resident CTA
+
 template <int SR>
 struct Geometry {
   static constexpr int TOTAL = 2 * SR + 1;               // dx (and dy) candidates
   static constexpr int THREADS = 32 * TOTAL;             // one warp per dy
-  static constexpr int PADX = SR <= 4 ? 4 : 8;           // halo columns: >= SR, a multiple of 4
-  static constexpr int NQ = (BLK + 2 * PADX) / 4;        // float4s in a block's window
+  static constexpr int PADX = (SR + 3) / 4 * 4;          // halo columns: SR rounded up to a multiple of 4
   // A reference box is the BLK + 2*SR rows that one block row of the tile
   // reads, REF_BOX_W >= TILE_W + 2*PADX + 4 columns, in two copies: the
   // first 2*SR + HALF rows (what rows 0..3 of its blocks read), then HALF
   // rows; each copy lands on a 128-byte boundary
   static constexpr int REF_BOX_H = BLK + 2 * SR;
   static constexpr int REF_EARLY = 2 * SR + HALF;
-  static constexpr int REF_BOX_W = SR <= 4 ? TILE_W + 16 : TILE_W + 32;
+  static constexpr int REF_BOX_W = SR <= 4 ? TILE_W + 16 : (TILE_W + 2 * PADX + 4 + 31) / 32 * 32;
   static constexpr int REF_BOX_BYTES = REF_BOX_H * REF_BOX_W * 4;
   // one tile's buffer: reference boxes A (first block row) and B (second),
   // current boxes C and D
@@ -132,10 +143,24 @@ struct Geometry {
   static constexpr int STAGE_BYTES = OFF_D + CUR_BOX_BYTES;
   static constexpr unsigned EARLY_TX = 2u * REF_EARLY * REF_BOX_W * 4 + 2u * CUR_HALF_BYTES;
   static constexpr unsigned LATE_TX = 2u * HALF * REF_BOX_W * 4 + 2u * CUR_HALF_BYTES;
+  static_assert(REF_BOX_W >= TILE_W + 2 * PADX + 4 && REF_BOX_W <= 256, "reference box width");
   static_assert(REF_EARLY * REF_BOX_W * 4 % 128 == 0 && REF_BOX_BYTES % 128 == 0,
                 "every copy must land on a 128-byte boundary");
   static constexpr int SMEM_BYTES = 2 * STAGE_BYTES + 4 * 8 + TOTAL * 32 * 8;
-  static constexpr int MIN_CTAS = SR <= 4 ? 4 : 2;       // resident CTAs per SM
+  // Resident CTAs per SM the kernel is compiled for (__launch_bounds__):
+  // what the shared memory of two tile buffers allows, and no more than
+  // leave each thread 56 registers; the tuned sr <= 7 kernels keep 4 and 2
+  static constexpr int SMEM_FIT = SM_SMEM / (SMEM_BYTES + CTA_SMEM_RESERVED);
+  static constexpr int REG_FIT = 65536 / (56 * THREADS);
+  static constexpr int FIT = SMEM_FIT < REG_FIT ? SMEM_FIT : REG_FIT;
+  static constexpr int MIN_CTAS = SR <= 4 ? 4 : SR <= 7 ? 2 : (FIT > 1 ? FIT : 1);
+  static_assert(SMEM_FIT >= MIN_CTAS, "the shared memory must hold MIN_CTAS CTAs");
+  // Candidates a lane searches per pass over a block's rows: all 2*SR+1 up
+  // to SR = 7; from SR = 8 the dx range is cut into passes of at most 8
+  // (2*SR+1 accumulators, the window and the current row would not fit in
+  // the registers 2*SR+1 warps leave a thread: 64 at SR = 15)
+  static constexpr int PASSES = TOTAL <= 15 ? 1 : (TOTAL + 7) / 8;
+  static constexpr int DXC = (TOTAL + PASSES - 1) / PASSES;
 };
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -193,6 +218,69 @@ __device__ __forceinline__ void stage(unsigned buf, unsigned bar, bool late, int
   box_copy(buf + G::OFF_B + ref_at, ref_map, x0 - G::PADX - 4, ref_y + BLK, bar);
   box_copy(buf + G::OFF_C + cur_at, cur_map, x0, cur_y, bar);
   box_copy(buf + G::OFF_D + cur_at, cur_map, x0 - 4, cur_y + BLK, bar);
+}
+
+// Pass PASS of one lane's search: the candidates dx = D0 - SR .. D0 + ND - 1
+// - SR of its dy, each SSD summed over the block's rows r = 0..7 (outer) and
+// columns k = 0..7 (inner) from 0.f with __fsub_rn, __fmul_rn and __fadd_rn,
+// then each valid candidate offered, in dx order, to the lane's strict-<
+// minimum (best, best_idx), which earlier passes (smaller dx) have set.
+// `cur` and `ref` are the lane's current row and reference window (row 0,
+// this dy) in the tile buffer; rows 4..7 wait for the late half on `late`.
+template <int SR, int PASS = 0>
+__device__ __forceinline__ void search_passes(const unsigned char* cur, const unsigned char* ref,
+                                              unsigned late, unsigned parity, bool valid_y,
+                                              int bx, int W, int warp, float& best,
+                                              int& best_idx) {
+  using G = Geometry<SR>;
+  if constexpr (PASS < G::PASSES) {
+    constexpr int D0 = PASS * G::DXC;
+    constexpr int ND = G::TOTAL - D0 < G::DXC ? G::TOTAL - D0 : G::DXC;
+    constexpr int C0 = G::PADX - SR + D0;          // first window column this pass reads
+    constexpr int Q0 = C0 / 4;                     // the float4 that holds it
+    constexpr int NQ = (C0 + ND + 6) / 4 - Q0 + 1; // float4s through the last column read
+    const float4* crow = reinterpret_cast<const float4*>(cur);
+    const float4* rrow = reinterpret_cast<const float4*>(ref) + Q0;
+    float acc[ND];
+#pragma unroll
+    for (int d = 0; d < ND; ++d) acc[d] = 0.f;
+
+#pragma unroll 1
+    for (int r = 0; r < BLK; ++r, crow += CUR_BOX_W / 4, rrow += G::REF_BOX_W / 4) {
+      if (r == HALF) wait_parity(late, parity);  // the late half has landed
+      const float4 c0 = crow[0];
+      const float4 c1 = crow[1];
+      const float c[BLK] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+      // w[i] = window column 4*Q0 + i of this row
+      float w[4 * NQ];
+#pragma unroll
+      for (int q = 0; q < NQ; ++q) {
+        const float4 v = rrow[q];
+        w[4 * q + 0] = v.x;
+        w[4 * q + 1] = v.y;
+        w[4 * q + 2] = v.z;
+        w[4 * q + 3] = v.w;
+      }
+#pragma unroll
+      for (int d = 0; d < ND; ++d) {  // dx = D0 + d - SR
+#pragma unroll
+        for (int k = 0; k < BLK; ++k) {
+          const float diff = __fsub_rn(c[k], w[C0 - 4 * Q0 + d + k]);
+          acc[d] = __fadd_rn(acc[d], __fmul_rn(diff, diff));
+        }
+      }
+    }
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      const int dx = D0 + d - SR;
+      const bool valid = valid_y && bx + dx >= 0 && bx + dx + BLK <= W;
+      if (valid && acc[d] < best) {  // strict: first in scan order wins ties
+        best = acc[d];
+        best_idx = warp * G::TOTAL + D0 + d;
+      }
+    }
+    search_passes<SR, PASS + 1>(cur, ref, late, parity, valid_y, bx, W, warp, best, best_idx);
+  }
 }
 
 template <int SR>
@@ -260,38 +348,6 @@ me_kernel(const __grid_constant__ CUtensorMap ref_early,
     }
 
     const unsigned char* buf = smem + b * G::STAGE_BYTES;
-    const float4* crow = reinterpret_cast<const float4*>(buf + cur_at);
-    const float4* rrow = reinterpret_cast<const float4*>(buf + ref_at);
-    float acc[G::TOTAL];
-#pragma unroll
-    for (int d = 0; d < G::TOTAL; ++d) acc[d] = 0.f;
-
-#pragma unroll 1
-    for (int r = 0; r < BLK; ++r, crow += CUR_BOX_W / 4, rrow += G::REF_BOX_W / 4) {
-      if (r == HALF) wait_parity(bar_b + 8, parity);  // the late half has landed
-      const float4 c0 = crow[0];
-      const float4 c1 = crow[1];
-      const float c[BLK] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
-      // w[i] = reference column x0 + lbx*8 - PADX + i of this row
-      float w[4 * G::NQ];
-#pragma unroll
-      for (int q = 0; q < G::NQ; ++q) {
-        const float4 v = rrow[q];
-        w[4 * q + 0] = v.x;
-        w[4 * q + 1] = v.y;
-        w[4 * q + 2] = v.z;
-        w[4 * q + 3] = v.w;
-      }
-#pragma unroll
-      for (int d = 0; d < G::TOTAL; ++d) {  // dx = d - SR
-#pragma unroll
-        for (int k = 0; k < BLK; ++k) {
-          const float diff = __fsub_rn(c[k], w[G::PADX - SR + d + k]);
-          acc[d] = __fadd_rn(acc[d], __fmul_rn(diff, diff));
-        }
-      }
-    }
-
     const int bxi = (t % tiles_x) * TBX + lbx;
     const int byi = (t / tiles_x) * TBY + lby;
     const int bx = bxi * BLK;
@@ -299,15 +355,8 @@ me_kernel(const __grid_constant__ CUtensorMap ref_early,
     const bool valid_y = gby + dy >= 0 && gby + dy + BLK <= total_h;
     float best = __int_as_float(0x7f800000);  // +inf
     int best_idx = 0;
-#pragma unroll
-    for (int d = 0; d < G::TOTAL; ++d) {
-      const int dx = d - SR;
-      const bool valid = valid_y && bx + dx >= 0 && bx + dx + BLK <= W;
-      if (valid && acc[d] < best) {  // strict: first in scan order wins ties
-        best = acc[d];
-        best_idx = warp * G::TOTAL + d;
-      }
-    }
+    search_passes<SR>(buf + cur_at, buf + ref_at, bar_b + 8, parity, valid_y, bx, W, warp, best,
+                      best_idx);
     s_best[warp * 32 + lane] = best;
     s_idx[warp * 32 + lane] = best_idx;
     __syncthreads();
@@ -411,6 +460,7 @@ int launch(const float* ref, int ref_rows, int ref_off, const float* cur, int* o
 int search(const float* ref, int ref_rows, int ref_off, const float* cur, int* out, int H, int W,
            int sr, int row0, int total_h, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  static_assert(MAX_SR == 15, "instantiate launch<1..MAX_SR> below");
   switch (sr) {
     case 1: return launch<1>(ref, ref_rows, ref_off, cur, out, H, W, row0, total_h, s);
     case 2: return launch<2>(ref, ref_rows, ref_off, cur, out, H, W, row0, total_h, s);
@@ -419,6 +469,14 @@ int search(const float* ref, int ref_rows, int ref_off, const float* cur, int* o
     case 5: return launch<5>(ref, ref_rows, ref_off, cur, out, H, W, row0, total_h, s);
     case 6: return launch<6>(ref, ref_rows, ref_off, cur, out, H, W, row0, total_h, s);
     case 7: return launch<7>(ref, ref_rows, ref_off, cur, out, H, W, row0, total_h, s);
+    case 8: return launch<8>(ref, ref_rows, ref_off, cur, out, H, W, row0, total_h, s);
+    case 9: return launch<9>(ref, ref_rows, ref_off, cur, out, H, W, row0, total_h, s);
+    case 10: return launch<10>(ref, ref_rows, ref_off, cur, out, H, W, row0, total_h, s);
+    case 11: return launch<11>(ref, ref_rows, ref_off, cur, out, H, W, row0, total_h, s);
+    case 12: return launch<12>(ref, ref_rows, ref_off, cur, out, H, W, row0, total_h, s);
+    case 13: return launch<13>(ref, ref_rows, ref_off, cur, out, H, W, row0, total_h, s);
+    case 14: return launch<14>(ref, ref_rows, ref_off, cur, out, H, W, row0, total_h, s);
+    case 15: return launch<15>(ref, ref_rows, ref_off, cur, out, H, W, row0, total_h, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }
@@ -446,7 +504,7 @@ extern "C" int ivc_motion_search(const float* ref, const float* cur, int* out, i
 extern "C" int ivc_motion_search_tile(const float* ref_ext, int ext_rows, const float* cur,
                                       int* out, int Ht, int W, int sr, int row0, int total_h,
                                       void* stream) {
-  if (!frame_ok(Ht, W) || sr < 1 || sr > 7 || ext_rows != Ht + 2 * sr || row0 < 0 ||
+  if (!frame_ok(Ht, W) || sr < 1 || sr > MAX_SR || ext_rows != Ht + 2 * sr || row0 < 0 ||
       row0 % BLK != 0 || row0 > total_h - Ht) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

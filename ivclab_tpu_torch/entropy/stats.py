@@ -16,15 +16,13 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-
-def _t(x) -> torch.Tensor:
-    return x if isinstance(x, torch.Tensor) else torch.from_numpy(np.array(x, copy=True))
+from ivclab_tpu_torch.utils.shape import as_tensor
 
 
 def _edge_histogram(values, lo: int, hi: int) -> torch.Tensor:
     """Counts for integer-edge bins ``[lo, lo+1, ..., hi]`` (np.histogram
     rules): bin i counts value lo+i; the last bin also takes value == hi."""
-    v = torch.floor(_t(values).reshape(-1).to(torch.float32)).to(torch.int64)
+    v = torch.floor(as_tensor(values).reshape(-1).to(torch.float32)).to(torch.int64)
     nbins = hi - lo
     off = torch.where(v == hi, nbins - 1, v - lo)
     valid = (v >= lo) & (v <= hi)
@@ -37,7 +35,7 @@ def stats_marg(image, pixel_range) -> torch.Tensor:
     the mass, as in the reference)."""
     edges = np.asarray(pixel_range)
     counts = _edge_histogram(image, int(edges[0]), int(edges[-1]))
-    total = int(np.prod(tuple(_t(image).shape)))
+    total = int(np.prod(tuple(as_tensor(image).shape)))
     return counts.to(torch.float32) / total
 
 
@@ -87,21 +85,21 @@ def pmf_from_histogram(hist) -> np.ndarray:
 
 def calc_entropy(pmf) -> torch.Tensor:
     """Shannon entropy ``-sum p log2 p`` over nonzero bins."""
-    p = _t(pmf).to(torch.float32)
+    p = as_tensor(pmf).to(torch.float32)
     logp = torch.log2(torch.where(p > 0, p, 1.0))
     return -(p * logp).sum()
 
 
 def min_code_length(target_pmf, common_pmf, eps: float = 1e-8) -> torch.Tensor:
     """Cross-entropy ``-sum p log2 (q + eps)``."""
-    p = _t(target_pmf).to(torch.float32)
-    q = _t(common_pmf).to(device=p.device, dtype=torch.float32) + eps
+    p = as_tensor(target_pmf).to(torch.float32)
+    q = as_tensor(common_pmf).to(device=p.device, dtype=torch.float32) + eps
     return -(p * torch.log2(q)).sum()
 
 
 def _pairs_nonoverlapping(image) -> torch.Tensor:
     """Non-overlapping horizontal pixel pairs -> ``[N, 2]``."""
-    x = _t(image)
+    x = as_tensor(image)
     if x.ndim == 2:
         x = x[:, :, None]
     H, W, C = x.shape
@@ -111,7 +109,7 @@ def _pairs_nonoverlapping(image) -> torch.Tensor:
 
 def _pairs_overlapping(image) -> torch.Tensor:
     """Overlapping horizontal pixel pairs -> ``[N, 2]``."""
-    x = _t(image)
+    x = as_tensor(image)
     if x.ndim == 2:
         x = x[:, :, None]
     return torch.stack([x[:, :-1, :].reshape(-1), x[:, 1:, :].reshape(-1)], dim=-1)
@@ -154,7 +152,7 @@ def stats_cond(image, pixel_range, eps: float = 1e-8, to_flat: bool = False) -> 
 def basic_histo(image):
     """256-bin intensity histogram(s) for 8-bit images: ``[256]`` for
     grayscale, a tuple of three ``[256]`` for RGB."""
-    x = _t(image).clamp(0, 255).to(torch.int64)
+    x = as_tensor(image).clamp(0, 255).to(torch.int64)
     if x.ndim == 2:
         return torch.bincount(x.reshape(-1), minlength=256).to(torch.int32)
     if x.ndim == 3 and x.shape[2] == 3:

@@ -10,13 +10,20 @@ float32, and channel 2 is the fused-multiply-add chain
 kernel, so nothing is contracted behind the code's back.
 
 The fused steps run in float64: the product of two float32 values is
-exact there, but the sum rounds twice (to float64, then to float32) where
-an FMA rounds once. On 8-bit inputs the float64 sum is exact, so the
-forward transforms of pixels, the ones the symbols depend on, equal the
-JAX package's bit for bit. On other inputs (the inverses applied to
-reconstructions) the double rounding can move a last bit: the ICT inverse
-rounds 1 of 8,235 values differently at 45x61. Reconstructions are held
-to the decoder-vs-encoder bound 1e-2, far above that.
+exact there and the sum rounds once in float64, then once to float32. On
+8-bit inputs that float64 sum is exact, so the step is an exactly rounded
+FMA; the double rounding has not been seen to change a value on the
+inverses' non-integer inputs either.
+
+What differs from the JAX package is XLA:CPU itself: its code for the
+dot's last pixels, past a multiple of 16, sums in another order. So each
+transform here (forward and inverse, BT.601 and ICT) equals the JAX
+package's eager call bit for bit when the pixel count H*W is a multiple of
+16, and within one float32 ulp at 256 (2**-15) elsewhere: the ICT inverse
+at 45x61 rounds 1 value of 8,235 differently, its last pixel's channel 0,
+a plain sum. The intra codec's symbols and bytes equal the JAX package's
+on such shapes too (45x61 and 41x57 in the tests): a difference in the
+last bit rarely moves a scaled coefficient across k + 1/2.
 """
 
 from __future__ import annotations

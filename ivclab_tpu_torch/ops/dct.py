@@ -1,9 +1,11 @@
-"""Orthonormal 8x8 DCT-II / DCT-III on flattened blocks.
+"""Orthonormal 8x8 DCT-II / DCT-III.
 
-Port of ``ivclab_tpu/ops/dct.py``. Blocks are ``[N, 64]`` row-major vectors
-transformed by one ``[64, 64]`` float32 matrix product with
+Port of ``ivclab_tpu/ops/dct.py``. The codec path transforms ``[N, 64]``
+row-major blocks by one ``[64, 64]`` float32 matrix product with
 ``kron(D, D)``; the JPEG zig-zag permutation is folded into the matrix
-rows, so coefficients come out in scan order.
+rows, so coefficients come out in scan order (:func:`dct2_fused`). The
+separable form ``D @ X @ D.T`` over ``[..., n, n]`` blocks serves the
+course reference's facade (:class:`DiscreteCosineTransform`).
 
 The product is a plain ``torch.matmul`` in full float32. TF32 would change
 the coefficients, and with them the quantized symbols near a rounding
@@ -17,7 +19,7 @@ import functools
 import numpy as np
 import torch
 
-from ivclab_tpu_torch.utils.shape import zigzag_gather_indices
+from ivclab_tpu_torch.utils.shape import as_tensor, zigzag_gather_indices
 
 
 @functools.lru_cache(maxsize=None)
@@ -81,3 +83,47 @@ def idct2_fused(flat_coeffs: torch.Tensor) -> torch.Tensor:
     """Inverse transform: scan-ordered ``[N, 64]`` coefficients -> pixels."""
     x = flat_coeffs.to(torch.float32)
     return torch.matmul(x, _kron_t(True, x.device))
+
+
+def _dct_t(n: int, device) -> torch.Tensor:
+    return torch.tensor(dct_matrix(n), dtype=torch.float32, device=device)
+
+
+def dct2(blocks) -> torch.Tensor:
+    """Forward 2-D DCT on the last two axes of ``[..., n, n]``: ``D @ X @ D.T``."""
+    x = as_tensor(blocks).to(torch.float32)
+    D = _dct_t(x.shape[-1], x.device)
+    return torch.matmul(torch.matmul(D, x), D.T)
+
+
+def idct2(blocks) -> torch.Tensor:
+    """Inverse 2-D DCT on the last two axes of ``[..., n, n]``: ``D.T @ X @ D``."""
+    x = as_tensor(blocks).to(torch.float32)
+    D = _dct_t(x.shape[-1], x.device)
+    return torch.matmul(torch.matmul(D.T, x), D)
+
+
+class DiscreteCosineTransform:
+    """The course reference's facade (``transform``/``inverse_transform``)
+    over ``[..., H_window, W_window]`` block tensors."""
+
+    def __init__(self, norm: str = "ortho"):
+        if norm != "ortho":
+            raise NotImplementedError("only the orthonormal DCT is supported")
+        self.norm = norm
+
+    def transform(self, patched_img) -> torch.Tensor:
+        return dct2(patched_img)
+
+    def inverse_transform(self, transformed) -> torch.Tensor:
+        return idct2(transformed)
+
+
+def zigzag_scan(block) -> torch.Tensor:
+    """Zig-zag scan ``[..., n, n]`` blocks to ``[..., n*n]`` vectors."""
+    x = as_tensor(block)
+    n = x.shape[-1]
+    if x.shape[-2] != n:
+        raise ValueError("zigzag_scan expects a square block")
+    idx = torch.from_numpy(zigzag_gather_indices(n).astype(np.int64)).to(x.device)
+    return x.reshape(*x.shape[:-2], n * n)[..., idx]

@@ -40,6 +40,7 @@ LAUNCHES = 0
 TILE_LAUNCHES = 0
 
 BLOCK = 8  # block size of the search, the kernel and the codec
+MAX_SEARCH_RANGE = 15  # the kernel is instantiated for search ranges 1..15
 
 
 def motion_search_tile_reference(ref_ext: torch.Tensor, cur_tile: torch.Tensor, row0: int,
@@ -177,8 +178,9 @@ def _check_planes(device, **planes: torch.Tensor):
 
 def _check_search_range(search_range) -> int:
     sr = int(search_range)
-    if not 1 <= sr <= 7:
-        raise ValueError(f"search_range {sr} outside [1, 7]")
+    if not 1 <= sr <= MAX_SEARCH_RANGE:
+        raise ValueError(f"search_range {sr} outside [1, {MAX_SEARCH_RANGE}]: the CUDA kernel "
+                         f"is built for search ranges up to {MAX_SEARCH_RANGE}")
     return sr
 
 
@@ -187,7 +189,7 @@ def motion_search_cuda(ref_image: torch.Tensor, image: torch.Tensor,
     """Launch the Hopper kernel (``csrc/motion_search.cu``) on one frame pair.
 
     Takes contiguous float32 ``[H, W]`` CUDA tensors on one device, H and W
-    multiples of 8, ``1 <= search_range <= 7``; raises on anything else and
+    multiples of 8, ``1 <= search_range <= 15``; raises on anything else and
     on a launch error. Runs on the current stream without synchronising.
     """
     global LAUNCHES

@@ -1,7 +1,7 @@
 """Deterministic synthetic test/benchmark imagery (numpy).
 
-A copy of ``ivclab_tpu/utils/fixtures.py`` (``image``, ``degraded`` and
-``video``): the same name, length and shape give the same pixels. The
+A copy of ``ivclab_tpu/utils/fixtures.py`` (``image``, ``degraded``,
+``video`` and ``video_1080p``): the same name, length and shape give the same pixels. The
 course reference validates against real images and sequences distributed
 out of band; these are reproducible stand-ins with natural-image-like
 statistics (multi-octave smooth value noise + edges + texture) and real
@@ -151,3 +151,7 @@ def video(name: str = "foreman", num_frames: int = 21, shape=(288, 352)) -> np.n
         frames[t] = np.clip(np.round(frame), 0, 255).astype(np.uint8)
     return frames
 
+
+def video_1080p(num_frames: int = 8) -> np.ndarray:
+    """1080p benchmark sequence (1088 x 1920, the throughput workload)."""
+    return video("bench1080", num_frames=num_frames, shape=(1088, 1920))

@@ -11,9 +11,12 @@ bands) against their plain PyTorch versions on the card, the GOP codec's
 CUDA pack against its CPU pack, the sharded codec on the card against the
 fused pack, and the intra codec's CUDA container bytes against its CPU
 bytes; the adaptive video codec's bytes, launches and decodes on the card
-against its CPU bytes, and the sharded adaptive encoder against the
-single-device one; and it checks that the C++ entropy engine builds there. The CPU
-parity with the JAX package is in the other tests/test_torch_*.py files.
+against its CPU bytes (at search ranges 4 and 8), and the sharded adaptive
+encoder against the single-device one; the ch1/ch2 library's filters,
+wavefront and ``PredictiveCodec`` against the CPU port (equal bits; the
+FFT within its tolerance); and it checks that the C++ entropy engine builds
+there. The CPU parity with the JAX package is in the other
+tests/test_torch_*.py files.
 """
 
 import numpy as np
@@ -28,9 +31,19 @@ from torch_parity import (  # noqa: F401
 )
 
 import ivclab_tpu_torch.ops.motion as tmotion
-from ivclab_tpu_torch import FusedVideoCodec, HuffmanCoder, IntraCodec, VideoCodec
+from ivclab_tpu_torch import (
+    FusedVideoCodec,
+    HuffmanCoder,
+    IntraCodec,
+    PredictiveCodec,
+    VideoCodec,
+    three_pixels_predictor,
+)
 from ivclab_tpu_torch import parallel as tpar
 from ivclab_tpu_torch.models import intracodec as tintra
+from ivclab_tpu_torch.models.predictive import COEFFS_CBCR, COEFFS_Y
+from ivclab_tpu_torch.ops.predictive import predict_from_neighbors, reconstruct_from_residual
+from ivclab_tpu_torch.ops.resample import decimate, decimate_iir, lowpass_filter
 from ivclab_tpu_torch.runtime import native
 from ivclab_tpu_torch.utils import fixtures
 
@@ -78,9 +91,12 @@ def _bands_of(H):
     return H // 2 if (H // 2) % 8 == 0 else 8
 
 
+SEARCH_RANGES = [*range(1, 8), 8, 11, 15]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("H,W", [(288, 352), (40, 56), (64, 384)])
-@pytest.mark.parametrize("sr", range(1, 8))
+@pytest.mark.parametrize("sr", SEARCH_RANGES)
 def test_kernel_equals_kernel_order_plain_on_float_frames(cuda_device, H, W, sr):
     """The kernel repeats the kernel-order plain version's arithmetic, so
     both entry points equal it bit for bit on float frames, every band too."""
@@ -101,7 +117,7 @@ def test_kernel_equals_kernel_order_plain_on_float_frames(cuda_device, H, W, sr)
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("pattern", ["flat", "periodic"])
-@pytest.mark.parametrize("sr", range(1, 8))
+@pytest.mark.parametrize("sr", SEARCH_RANGES)
 def test_kernel_on_tie_heavy_frames(cuda_device, pattern, sr):
     """Many candidates tie: the first valid one in scan order must win, and
     zero-filled out-of-frame candidates (SSD 0 on a flat zero frame) never."""
@@ -127,7 +143,7 @@ def test_kernel_on_tie_heavy_frames(cuda_device, pattern, sr):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sr", [4, 7])
+@pytest.mark.parametrize("sr", [4, 7, 8, 15])
 def test_first_and_last_band_equal_kernel_order_plain(cuda_device, sr):
     """The bench fixture at 1088x1920 in 4 bands: row0 = 0, whose halo rows
     above lie outside the frame, and the last band, whose halo rows below do."""
@@ -142,6 +158,18 @@ def test_first_and_last_band_equal_kernel_order_plain(cuda_device, sr):
         assert_exact(got, tmotion.motion_search_tile_kernel_order(ext, band, i * band_h, H, sr),
                      f"band {i}")
         assert_exact(got, whole[i * band_h // 8:(i + 1) * band_h // 8], f"band {i} vs whole")
+
+
+@pytest.mark.cuda
+def test_kernel_refuses_search_range_16(cuda_device):
+    x = torch.zeros((64, 64), device=cuda_device)
+    ext = torch.zeros((64 + 32, 64), device=cuda_device)
+    before = (tmotion.LAUNCHES, tmotion.TILE_LAUNCHES)
+    with pytest.raises(ValueError, match="up to 15"):
+        tmotion.motion_search_cuda(x, x, 16)
+    with pytest.raises(ValueError, match="up to 15"):
+        tmotion.motion_search_tile_cuda(ext, x, 0, 64, 16)
+    assert (tmotion.LAUNCHES, tmotion.TILE_LAUNCHES) == before
 
 
 @pytest.mark.cuda
@@ -341,3 +369,57 @@ def test_sharded_adaptive_encoder_on_the_card_matches_single_device(cuda_device)
     for g in range(2):
         single = VideoCodec(1.0, device=cuda_device).encode_to_container(y[2 * g:2 * g + 2])
         assert blobs[g] == single
+
+
+@pytest.mark.cuda
+def test_video_codec_at_search_range_8_on_the_card_matches_cpu_bytes(cuda_device):
+    """A codec with search_range >= 8 runs its motion search on the card."""
+    y = luma(fixtures.video("bench", 3, (256, 480)))
+    g = VideoCodec(1.0, search_range=8, device=cuda_device)
+    before = tmotion.LAUNCHES
+    blob = g.encode_to_container(y)
+    torch.cuda.synchronize()
+    assert tmotion.LAUNCHES - before == 2
+    assert blob == VideoCodec(1.0, search_range=8, device="cpu").encode_to_container(y)
+
+
+def _plane(seed, shape):
+    return torch.from_numpy((np.random.default_rng(seed).random(shape) * 255).astype(np.float32))
+
+
+_SIGNAL_OPS = {
+    "decimate axis 0": lambda x: decimate(x, 2, axis=0),
+    "decimate axis 1": lambda x: decimate(x, 2, axis=1),
+    "lowpass_filter": lambda x: lowpass_filter(x, np.array([[1, 2, 1], [2, 4, 2], [1, 2, 1]])),
+    "decimate_iir axis 0": lambda x: decimate_iir(x, 2, axis=0),
+    "decimate_iir axis 1": lambda x: decimate_iir(x, 2, axis=1),
+    "wavefront q=1": lambda x: torch.cat(predict_from_neighbors(x, COEFFS_Y, 1.0, True)),
+    "wavefront q=3": lambda x: torch.cat(predict_from_neighbors(x, COEFFS_Y, 3.0, True)),
+    "inverse wavefront q=3": lambda x: reconstruct_from_residual(
+        torch.round(x / 16), x[0], x[:, 0], COEFFS_CBCR, 3.0),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("op", sorted(_SIGNAL_OPS))
+def test_signal_ops_equal_on_cuda_and_cpu(cuda_device, op):
+    """Fixed-order elementwise IEEE arithmetic: the same bits on both."""
+    x = _plane(60, (200, 168))
+    got = _SIGNAL_OPS[op](x.to(cuda_device))
+    assert got.is_cuda
+    assert torch.equal(got.cpu(), _SIGNAL_OPS[op](x)), op
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("subsample", [False, True])
+@pytest.mark.parametrize("q", [1.0, 4.0])
+def test_predictive_codec_bits_equal_on_cuda_and_cpu(cuda_device, subsample, q):
+    img = fixtures.image("lena_small")
+    rec, bits = PredictiveCodec(q, subsample, device=cuda_device).encode_decode(img)
+    rec_c, bits_c = PredictiveCodec(q, subsample, device="cpu").encode_decode(img)
+    assert rec.is_cuda and bits == bits_c
+    # the subsampled chroma comes back through the FFT (cuFFT vs pocketfft)
+    assert int((rec.cpu().int() - rec_c.int()).abs().max()) <= (1 if subsample else 0)
+    y, c = three_pixels_predictor(img, subsample, device=cuda_device)
+    yc, cc = three_pixels_predictor(img, subsample, device="cpu")
+    assert torch.equal(y.cpu(), yc) and torch.equal(c.cpu(), cc)

@@ -303,8 +303,9 @@ def test_color_matches_jax_bit_for_bit(shape, lena):
     assert_exact(tcolor.rgb2ycbcr_ict(img).numpy().view(np.int32),
                  np.asarray(jcolor.rgb2ycbcr_ict(img)).view(np.int32), "ICT forward bits")
     ict = np.asarray(jcolor.rgb2ycbcr_ict(img))
-    # the ICT inverse (off the codec path) rounds a rare value differently:
-    # 1 of 8,235 at 45x61 (channel 0), none at 512x512
+    # XLA:CPU sums a dot's last pixels past a multiple of 16 in another
+    # order: at 45x61 (2,745 pixels) the ICT inverse's last pixel rounds
+    # channel 0, a plain sum, differently (1 of 8,235); 256x256 is exact
     assert_close(tcolor.ycbcr2rgb_ict(ict), jcolor.ycbcr2rgb_ict(ict), 1e-5, "ICT inverse")
 
 

@@ -75,7 +75,7 @@ def test_cuda_wrapper_rejects_what_the_kernel_does_not_take(bad):
     elif bad == "shape":
         x = torch.zeros((12, 24))
     elif bad == "sr":
-        kwargs["search_range"] = 8
+        kwargs["search_range"] = 16  # the kernel is built for 1..15
     with pytest.raises(ValueError):
         tmotion.motion_search_cuda(x, x, **kwargs)
 

@@ -206,9 +206,10 @@ def test_facade_matches_jax(foreman, jax_facade, policy):
         assert bits == jbits, f"frame {t} bits"
         assert blob == jblob, f"frame {t} blob"
         assert_close(codec.decoder_recon, jrecon, RECON_TOL, f"frame {t} luma")
-        # ycbcr2rgb of non-integer luma: ops/color.py:68 (_fma) rounds the
-        # third channel's sum twice, so a value next to an integer may
-        # truncate to the neighbouring level
+        # the facade's RGB is ycbcr2rgb of the decoded luma, which equals
+        # JAX's within RECON_TOL, not bit for bit (the inverse DCT's float32
+        # sums run in another order), so a value next to k + 1/2 may round
+        # to the neighbouring level
         assert rgb.dtype == torch.uint8 and rgb.shape == jrgb.shape
         assert np.abs(rgb.numpy().astype(int) - jrgb.astype(int)).max() <= 1, f"frame {t} RGB"
         dec = VideoCodec.decode_frame_payload(blob, prev, device="cpu")
