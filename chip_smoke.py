@@ -15,11 +15,15 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    float fixture frames every mismatch must be a verified near-tie; bit
    for bit against the kernel-order plain version (which repeats the
    kernel's summation) on the float fixture, on random float frames at
-   288x352, 40x56 and 64x384 for sr 1..7, at 40x56, 64x384 and 1088x1920
-   for sr 8 and 15, and on a 2-pixel-periodic pattern where many
-   candidates tie; search range 16 is refused; times both at 1088x1920
-   (the kernel by its device time in a ``torch.profiler`` trace), and the
-   kernel at sr 8 and 15 beside their bounds;
+   288x352, 40x56 and 64x384 for sr 1..7 and for the wide kernel's sr 0,
+   16 and 32, at 40x56, 64x384 and 1088x1920 for sr 8 and 15, at
+   1088x1920 for sr 16, and on a 2-pixel-periodic pattern where many
+   candidates tie, each case on the kernel its range belongs to
+   (``me_kernel`` for 1..15, ``wide_kernel`` for the rest); search ranges
+   -1 and 23170 are refused; times both at 1088x1920 (the kernel by its
+   device time in a ``torch.profiler`` trace), the kernel at sr 8 and 15
+   and the wide kernel at sr 0, 16 and 32 beside their bounds, and the
+   plain version at sr 16;
 3. cross-device integer exactness: one set of symbols and motion fields
    packed and serialized on CUDA and on the CPU gives identical bytes, and
    the two decodes agree;
@@ -33,9 +37,10 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    and 7: exact on integer-valued and flat frames, near-ties only on the
    float fixture, and the bands together equal to the whole-frame kernel;
    bit for bit against the kernel-order plain version at every band of
-   phase 2's float and tie-heavy cases (sr 8 and 15 included); bad row
-   windows are refused; times both on a 272x1920 band, and the kernel at
-   sr 8 and 15;
+   phase 2's float and tie-heavy cases (sr 8, 15 and the wide kernel's 0,
+   16 and 32 included); bad row windows are refused; times both on a
+   272x1920 band, the kernel at sr 8 and 15 and the wide kernel at sr 0,
+   16 and 32;
 6. the sharded path at full width: ``build_sharded_video_codec`` on an
    in-process gop=2 x tile=4 mesh on the card over 16 1920x1088 frames
    (two 8-frame GOPs, 272-row bands), against ``FusedVideoCodec.pack_gop``
@@ -89,7 +94,17 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    of the CPU port's (2 for the ICT's fft mode, which rounds between two
    FFTs); (d) warm medians of every entry point above, and
    profiles of ``PredictiveCodec.encode_decode``, one luma wavefront and
-   the IIR decimate (device ms, launches, busy share).
+   the IIR decimate (device ms, launches, busy share);
+12. the CLI on the card, in process through ``ivclab_tpu_torch.cli.main``,
+   each run's stream byte for byte against the same run with ``--device
+   cpu`` and its kernel launches counted: ``encode-video`` of 8 CIF
+   foreman frames for the three codebook policies with ``--trace`` (stage
+   times), at ``--search-range 16`` (the wide kernel), 3 frames at sr 0
+   and 16 for both codecs, ``--mesh-gop 2 --mesh-tile 1`` over 16 frames
+   in GOPs of 8 (the band entry point); ``decode-video`` to ``.npy``
+   (within 1 level of the CPU's) and ``info`` of the sr=16 stream;
+   ``rd-sweep --kind video --frames 3`` (every point equal to the CPU's);
+   ``tools/dryrun.py::dryrun_multichip(8, "cuda")`` on a 2x4 mesh.
 
 The line before the last is a JSON list of the kernels with their launch
 counts over every main path above, times and bounds; the last line is
@@ -148,18 +163,24 @@ def band_of(ref, cur, i: int, band_h: int, sr: int):
             cur[i * band_h:(i + 1) * band_h].contiguous())
 
 
+WIDE_RANGES = (0, 16, 32)  # the wide kernel's search ranges in phases 2 and 5
+
+
 def kernel_order_cases(fy):
     """(label, ref, cur, sr, band height) of the bit-for-bit checks against
     the kernel-order plain version: the float fixture pair, random float
-    frames at three sizes for sr 1..7 and at 40x56, 64x384 and 1088x1920
-    for sr 8 and 15, and a 2-pixel-periodic pattern on which every even
-    displacement ties."""
+    frames at three sizes for sr 1..7 and the wide kernel's sr 0, 16 and 32,
+    at 40x56, 64x384 and 1088x1920 for sr 8 and 15 and at 1088x1920 for sr
+    16, and a 2-pixel-periodic pattern on which every even displacement
+    ties (sr 1..7 and 0, 16, 32)."""
     import numpy as np
 
     rng = np.random.default_rng(SEED + 1)
     cases = [("float fixture 1088x1920 sr=4", fy[0], fy[1], 4, 272)]
-    sizes = [((288, 352, 144), range(1, 8)), ((40, 56, 8), (*range(1, 8), 8, 15)),
-             ((64, 384, 16), (*range(1, 8), 8, 15)), ((1088, 1920, 272), (8, 15))]
+    sizes = [((288, 352, 144), (*range(1, 8), *WIDE_RANGES)),
+             ((40, 56, 8), (*range(1, 8), 8, 15, *WIDE_RANGES)),
+             ((64, 384, 16), (*range(1, 8), 8, 15, *WIDE_RANGES)),
+             ((1088, 1920, 272), (8, 15, 16))]
     for (H, W, band_h), srs in sizes:
         for sr in srs:
             ref = (rng.random((H, W)) * 255).astype(np.float32)
@@ -167,10 +188,40 @@ def kernel_order_cases(fy):
             cases.append((f"random float {H}x{W} sr={sr}", ref, cur, sr, band_h))
     yy, xx = np.indices((288, 352))
     periodic = (40.0 * (2 * (yy % 2) + xx % 2) + 10.25).astype(np.float32)
-    for sr in range(1, 8):
+    for sr in (*range(1, 8), *WIDE_RANGES):
         cases.append((f"2-periodic 288x352 sr={sr}", periodic, np.roll(periodic, (1, 0), (0, 1)),
                       sr, 144))
     return cases
+
+
+def valid_candidate_share(H: int, W: int, sr: int, row0: int, total_h: int) -> float:
+    """Share of the (2 sr + 1)^2 candidates of an [H, W] plane's blocks that
+    lie inside the frame (rows row0.. of a total_h-row frame): what the wide
+    kernel reads, where the bound counts every candidate."""
+    import numpy as np
+
+    d = np.arange(-sr, sr + 1)
+    gy = row0 + np.arange(H // 8) * 8
+    bx = np.arange(W // 8) * 8
+    ny = ((gy[:, None] + d >= 0) & (gy[:, None] + d + 8 <= total_h)).sum(axis=1)
+    nx = ((bx[:, None] + d >= 0) & (bx[:, None] + d + 8 <= W)).sum(axis=1)
+    return float(ny.sum() * nx.sum()) / ((H // 8) * (W // 8) * (2 * sr + 1) ** 2)
+
+
+def launch_counts():
+    """(me_kernel frame, me_kernel band, wide_kernel frame, wide_kernel band)
+    launches counted by the wrappers so far."""
+    from ivclab_tpu_torch.ops import motion
+
+    return (motion.LAUNCHES, motion.TILE_LAUNCHES, motion.WIDE_LAUNCHES,
+            motion.WIDE_TILE_LAUNCHES)
+
+
+def reset_launch_counts():
+    from ivclab_tpu_torch.ops import motion
+
+    motion.LAUNCHES = motion.TILE_LAUNCHES = 0
+    motion.WIDE_LAUNCHES = motion.WIDE_TILE_LAUNCHES = 0
 
 
 def profile_line(label: str, fn) -> None:
@@ -845,6 +896,134 @@ def library_phase(dev, card: str, H: int = 1088, W: int = 1920) -> None:
              lambda: _decimate_iir(_decimate_iir(cbcr_dev, 0), 1), iir_ms)):
         print(f"[profile] library {label}: {profile_summary(fn, ms)} ({card})")
 
+def run_cli(*argv) -> dict:
+    """``ivclab_tpu_torch.cli.main(argv)`` in this process; its JSON report
+    (the last line it prints), echoed with a prefix."""
+    import contextlib
+    import io
+
+    from ivclab_tpu_torch import cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli.main(list(argv))
+    return json.loads(buf.getvalue().strip().splitlines()[-1])
+
+
+def cli_phase(card: str) -> tuple[int, int, int]:
+    """Phase 12: the CLI on the card, in process, each run against the same
+    run with ``--device cpu``. Returns the (me_kernel frame, me_kernel band,
+    wide_kernel) launches of its main-path runs."""
+    import tempfile
+    from pathlib import Path
+
+    import numpy as np
+    import torch
+
+    from ivclab_tpu_torch.tools.dryrun import dryrun_multichip
+
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
+    totals = [0, 0, 0]
+
+    def on_card(label, argv, want):
+        """One CLI run on the card (launches counted) and its CPU twin."""
+        torch.cuda.synchronize()
+        reset_launch_counts()
+        out = run_cli("--device", "cuda", *argv(tmp / f"{label}.cuda"))
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        totals[0] += counts[0]
+        totals[1] += counts[1]
+        totals[2] += counts[2] + counts[3]
+        ref = run_cli("--device", "cpu", *argv(tmp / f"{label}.cpu"))
+        same = (tmp / f"{label}.cuda").read_bytes() == (tmp / f"{label}.cpu").read_bytes()
+        print(f"[cli] {label}: {out.get('container_bytes')} bytes, stream == --device cpu "
+              f"{same}; launches me_kernel {counts[0]} frame / {counts[1]} band, wide_kernel "
+              f"{counts[2]} frame / {counts[3]} band (want {want}); PSNR-Y "
+              f"{out.get('mean_psnr_y_db')} dB (cpu {ref.get('mean_psnr_y_db')}), mean bpp "
+              f"{out.get('mean_bpp')} (cpu {ref.get('mean_bpp')})")
+        if "trace" in out:
+            print(f"[cli] {label} stages ({card}): " + ", ".join(
+                f"{name} {row['total_s'] * 1e3:.3f} ms / {row['calls']} calls"
+                for name, row in out["trace"].items()))
+        check(same, f"CLI {label}: the card's stream differs from --device cpu")
+        check(counts == want, f"CLI {label}: launches {counts}, not {want}")
+        for key in ("container_bytes", "frames", "gops", "mean_bpp", "per_frame_bits"):
+            check(out[key] == ref[key], f"CLI {label}: {key} {out[key]} != cpu {ref[key]}")
+        check(abs(out["mean_psnr_y_db"] - ref["mean_psnr_y_db"]) <= 1e-3,
+              f"CLI {label}: PSNR-Y off the CPU's")
+        return out
+
+    T = 8
+    enc = ["encode-video", "fixture:foreman"]
+    for policy in ("first-p-frame", "per-frame", "adaptive"):
+        # first-p-frame searches once in training and once a P-frame
+        want = (T if policy == "first-p-frame" else T - 1, 0, 0, 0)
+        on_card(f"{policy} CIF T={T}", lambda p, policy=policy: [
+            "--trace", *enc, str(p), "--frames", str(T), "--codebook-policy", policy], want)
+    on_card(f"first-p-frame CIF T={T} sr=16", lambda p: [
+        "--trace", *enc, str(p), "--frames", str(T), "--search-range", "16"], (0, 0, T, 0))
+    for policy, sr in (("first-p-frame", 0), ("per-frame", 0), ("per-frame", 16)):
+        on_card(f"{policy} CIF T=3 sr={sr}", lambda p, policy=policy, sr=sr: [
+            *enc, str(p), "--frames", "3", "--search-range", str(sr), "--codebook-policy",
+            policy], (0, 0, 3 if policy == "first-p-frame" else 2, 0))
+    mesh_T = 16
+    on_card(f"first-p-frame CIF T={mesh_T} --gop 8 mesh 2x1", lambda p: [
+        "--trace", *enc, str(p), "--frames", str(mesh_T), "--gop", "8",
+        "--mesh-gop", "2", "--mesh-tile", "1"], (8, 14, 0, 0))
+
+    # decode-video and info on the card's sr=16 stream, against the CPU
+    stream = tmp / f"first-p-frame CIF T={T} sr=16.cuda"
+    dec = {d: run_cli("--device", d, "--trace", "decode-video", str(stream),
+                      str(tmp / f"dec-{d}.npy")) for d in ("cuda", "cpu")}
+    a, b = np.load(tmp / "dec-cuda.npy"), np.load(tmp / "dec-cpu.npy")
+    diff = np.abs(a.astype(np.int64) - b.astype(np.int64))
+    print(f"[cli] decode-video sr=16 stream to .npy: {dec['cuda']['frames']} frames "
+          f"{dec['cuda']['shape']}, card vs cpu: {int((diff > 0).sum())} of {diff.size} pixels "
+          f"differ, by at most {int(diff.max())} (limit 1 level, 1e-4 of the pixels); "
+          f"decode {dec['cuda']['trace']['decode']['total_s'] * 1e3:.3f} ms ({card})")
+    check(a.shape == (T, 288, 352) and diff.max() <= 1 and (diff > 0).sum() <= 1e-4 * diff.size,
+          "decode-video: the card's frames differ from the CPU's")
+    info = {d: run_cli("--device", d, "info", str(stream)) for d in ("cuda", "cpu")}
+    print(f"[cli] info: {info['cuda']['kind']}, {len(info['cuda']['gops'])} GOP(s), search range "
+          f"{info['cuda']['gops'][0]['search_range']}; equal on both devices "
+          f"{info['cuda'] == info['cpu']}")
+    check(info["cuda"] == info["cpu"] and info["cuda"]["gops"][0]["search_range"] == 16,
+          "info differs between the devices")
+
+    # rd-sweep --kind video: the facade, one whole-frame launch a P-frame
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    sweep = run_cli("--device", "cuda", "rd-sweep", "--kind", "video", "--frames", "3")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    totals[0] += counts[0]
+    sweep_cpu = run_cli("--device", "cpu", "rd-sweep", "--kind", "video", "--frames", "3")
+    n_q = len(sweep["points"])
+    print(f"[cli] rd-sweep video 3 frames: {n_q} points, launches {counts} (want "
+          f"{(2 * n_q, 0, 0, 0)}); " + "; ".join(
+              f"q={p['q']} {p['bpp']} bpp {p['psnr_db']} dB" for p in sweep["points"]))
+    check(counts == (2 * n_q, 0, 0, 0), f"rd-sweep launches {counts}")
+    for p, q in zip(sweep["points"], sweep_cpu["points"]):
+        same = p["q"] == q["q"] and p["bpp"] == q["bpp"]
+        check(same and abs(p["psnr_db"] - q["psnr_db"]) <= 1e-3,
+              f"rd-sweep point q={p['q']}: card {p}, cpu {q}")
+
+    # the multi-shard dry run, in process on the card: 2x4 mesh
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    dryrun_multichip(8, "cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    totals[0] += counts[0]
+    totals[1] += counts[1]
+    print(f"[cli] dryrun_multichip(8, 'cuda'): passed in {time.perf_counter() - t0:.2f} s, "
+          f"launches {counts}")
+    check(counts[1] > 0, "dryrun_multichip launched no band search")
+    return tuple(totals)
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -932,13 +1111,22 @@ def main() -> None:
     check(worst_gap < 1e-5, "a float mismatch is not a near-tie")
 
     order_cases = kernel_order_cases(fy)
+    wide_err = 0
     for label, r_np, c_np, sr, _ in order_cases:
         R2, C2 = torch.from_numpy(r_np).to(dev), torch.from_numpy(c_np).to(dev)
+        before = launch_counts()
         a = motion.motion_search_cuda(R2, C2, sr)
+        wide = launch_counts()[2] > before[2]
+        check(wide == (sr == 0 or sr >= 16), f"{label}: launched the wrong kernel")
         b = motion.motion_search_kernel_order(R2, C2, sr)
         bad = int((a != b).sum())
-        max_abs_err = max(max_abs_err, int((a - b).abs().max()))
-        print(f"[me] kernel-order plain, {label}: {bad} of {a.numel()} differ")
+        err = int((a - b).abs().max())
+        if wide:
+            wide_err = max(wide_err, err)
+        else:
+            max_abs_err = max(max_abs_err, err)
+        print(f"[me] kernel-order plain, {label} ({'wide_kernel' if wide else 'me_kernel'}): "
+              f"{bad} of {a.numel()} differ")
         check(bad == 0, f"kernel != kernel-order plain: {label}")
 
     for _ in range(3):
@@ -962,14 +1150,32 @@ def main() -> None:
         bound = motion_search_bound(H, H, W, sr)
         print(f"[me] 1088x1920 sr={sr} kernel {us:.3f} us device (mean of 20 launches); bound "
               f"{bound[0] * 1e3:.3f} us ({bound[1]}), {bound[0] * 1e3 / us:.3f} of it ({card})")
-    before = motion.LAUNCHES
-    try:
-        motion.motion_search_cuda(R, C, 16)
-    except ValueError as e:
-        print(f"[me] sr=16 refused: {e}")
-    else:
-        fail("the kernel took search_range 16")
-    check(motion.LAUNCHES == before, "a refused search range counted a launch")
+    # the wide kernel (sr 0, 16, 32) on the frame; the plain version only at
+    # sr 16, where it takes 1,089 candidate passes over the frame
+    wide_frame = {}
+    for sr in WIDE_RANGES:
+        motion.motion_search_cuda(R, C, sr)
+        us = float(np.mean(kernel_device_us(lambda: motion.motion_search_cuda(R, C, sr), 10,
+                                            "wide_kernel")))
+        bound = motion_search_bound(H, H, W, sr)
+        wide_frame[sr] = (us / 1e3, bound)
+        print(f"[me] 1088x1920 sr={sr} wide_kernel {us:.3f} us device (mean of 10 launches); "
+              f"bound {bound[0] * 1e3:.3f} us ({bound[1]}; every candidate, "
+              f"{valid_candidate_share(H, W, sr, 0, H):.4f} of them in the frame), "
+              f"{bound[0] * 1e3 / us:.4f} of it ({card})")
+    wide_ms, wide_bound = wide_frame[16]
+    wide_plain_ms = cuda_ms(lambda: motion.motion_search_reference(R, C, 16), 2)
+    print(f"[me] 1088x1920 sr=16 plain {wide_plain_ms:.3f} ms per call (CUDA events, mean of 2) "
+          f"({card})")
+    before = launch_counts()
+    for sr in (-1, 23170):
+        try:
+            motion.motion_search_cuda(R, C, sr)
+        except ValueError as e:
+            print(f"[me] sr={sr} refused: {e}")
+        else:
+            fail(f"the kernels took search_range {sr}")
+    check(launch_counts() == before, "a refused search range counted a launch")
 
     # ------------------------------------- 3. cross-device integer exactness
     small = luma(fixtures.video("bench", 4, (256, 480)))
@@ -1104,15 +1310,25 @@ def main() -> None:
         R2, C2 = torch.from_numpy(r_np).to(dev), torch.from_numpy(c_np).to(dev)
         H2 = R2.shape[0]
         bad = n = 0
+        wide = sr == 0 or sr >= 16
+        before = launch_counts()
         for i in range(H2 // bh):
             ext, band = band_of(R2, C2, i, bh, sr)
             a = motion.motion_search_tile_cuda(ext, band, i * bh, H2, sr)
             b = motion.motion_search_tile_kernel_order(ext, band, i * bh, H2, sr)
             bad += int((a != b).sum())
             n += a.numel()
-            tile_err = max(tile_err, int((a - b).abs().max()))
-        print(f"[band] kernel-order plain, {label} in {H2 // bh} bands of {bh} rows: "
-              f"{bad} of {n} differ")
+            err = int((a - b).abs().max())
+            if wide:
+                wide_err = max(wide_err, err)
+            else:
+                tile_err = max(tile_err, err)
+        after = launch_counts()
+        check(after[3] - before[3] == (H2 // bh if wide else 0)
+              and after[1] - before[1] == (0 if wide else H2 // bh),
+              f"{label}: bands launched the wrong kernel")
+        print(f"[band] kernel-order plain, {label} in {H2 // bh} bands of {bh} rows "
+              f"({'wide_kernel' if wide else 'me_kernel'}): {bad} of {n} differ")
         check(bad == 0, f"band kernel != kernel-order plain: {label}")
 
     before = motion.TILE_LAUNCHES
@@ -1154,6 +1370,17 @@ def main() -> None:
         print(f"[band] {band_h}x{W} band sr={sr} kernel {us:.3f} us device (mean of 20 launches); "
               f"bound {bound[0] * 1e3:.3f} us ({bound[1]}), {bound[0] * 1e3 / us:.3f} of it "
               f"({card})")
+    for sr in WIDE_RANGES:
+        ext_s, band_s = band_of(R, C, 1, band_h, sr)
+        motion.motion_search_tile_cuda(ext_s, band_s, band_h, H, sr)
+        us = float(np.mean(kernel_device_us(
+            lambda: motion.motion_search_tile_cuda(ext_s, band_s, band_h, H, sr), 10,
+            "wide_kernel")))
+        bound = motion_search_bound(band_h + 2 * sr, band_h, W, sr)
+        print(f"[band] {band_h}x{W} band sr={sr} wide_kernel {us:.3f} us device (mean of 10 "
+              f"launches); bound {bound[0] * 1e3:.3f} us ({bound[1]}; "
+              f"{valid_candidate_share(band_h, W, sr, band_h, H):.4f} of the candidates in the "
+              f"frame), {bound[0] * 1e3 / us:.4f} of it ({card})")
 
     # ------------------------------------- 6. the sharded path at full width
     from ivclab_tpu_torch import parallel
@@ -1242,6 +1469,12 @@ def main() -> None:
     # ---------------------------- 11. the ch1/ch2 library at full width
     library_phase(dev, card)
 
+    # ------------------------------------------- 12. the CLI on the card
+    cli_whole, cli_band, wide_launches = cli_phase(card)
+    launches += cli_whole
+    tile_launches += cli_band
+    check(wide_launches > 0, "the CLI runs launched no wide_kernel")
+
     print(json.dumps({"kernels": [{
         "name": "motion_search",
         "route": "cuda",
@@ -1265,6 +1498,18 @@ def main() -> None:
         "plain_ms": band_plain_ms,
         "bound_ms": band_bound[0],
         "bound_by": band_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "motion_search_wide",
+        "route": "cuda",
+        "source": "ivclab_tpu_torch/csrc/motion_search.cu",
+        "replaces": "ivclab_tpu/ops/motion_pallas.py:40",
+        "launches": wide_launches,
+        "max_abs_err": wide_err,
+        "ms": wide_ms,  # 1088x1920 at sr=16
+        "plain_ms": wide_plain_ms,
+        "bound_ms": wide_bound[0],
+        "bound_by": wide_bound[1],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -75,14 +75,24 @@
 // The row loop issues 227 instructions for its 216 FP32 operations; what
 // is left above the issue floor is the first tile's load, the last tiles
 // of an SM running with fewer warps, and the per-tile combine.
-//  5. Wide search ranges (sr = 8..15, up to 31 warps and 992 threads a CTA,
-//     which leaves a thread 64 registers). A lane cannot hold 2*sr+1
+//  5. Search ranges 8..15 (up to 31 warps and 992 threads a CTA, which
+//     leaves a thread 64 registers). A lane cannot hold 2*sr+1
 //     accumulators beside its window, so it scans its dy's candidates in
 //     passes of at most 8 dx over the block's rows, carrying its strict-<
 //     minimum from pass to pass in dx order; each SSD is summed exactly as
 //     in one pass. The halo is sr rounded up to a multiple of 4 columns, and
 //     a CTA's two buffers take up to 139 KB of shared memory at sr = 15
 //     (one CTA per SM there, two at sr = 8).
+//  6. Every other search range (sr = 0, and sr >= 16, where one warp per dy
+//     would need more than 32 warps a CTA) runs a second, simple kernel,
+//     wide_kernel, with sr as a runtime argument: one CTA per 8x8 block
+//     (256 threads, one warp at sr = 0), the threads striding over the
+//     (2*sr+1)^2 candidates in scan order, out-of-frame candidates never
+//     read, the reference read through the read-only path, then a CTA
+//     reduction to the smallest SSD and, among equal SSDs, the smallest
+//     packed index (what the strict < scan keeps). It stages nothing: at
+//     sr = 16 it does 13x the work of sr = 4 with none of the reuse above,
+//     and it is the place to start when wide ranges need speed.
 // Each candidate's SSD is summed as before: rows r = 0..7 outer, columns
 // k = 0..7 inner, __fsub_rn, __fmul_rn and __fadd_rn from 0.f, so the
 // indices equal the one-thread-per-block kernel's on every finite input.
@@ -107,6 +117,8 @@
 #include <cuda.h>
 #include <cuda_runtime.h>
 
+#include <climits>
+
 namespace {
 
 constexpr int BLK = 8;
@@ -118,7 +130,7 @@ constexpr int CUR_BOX_W = TILE_W + 8;   // columns of a current box (>= TILE_W +
 constexpr int CUR_HALF_BYTES = HALF * CUR_BOX_W * 4;  // a multiple of 128
 constexpr int CUR_BOX_BYTES = 2 * CUR_HALF_BYTES;
 
-constexpr int MAX_SR = 15;              // the largest search range instantiated
+constexpr int MAX_SR = 15;              // me_kernel<1..MAX_SR>; wide_kernel takes the rest
 constexpr int SM_SMEM = 233472;         // shared memory of one SM (228 KB)
 constexpr int CTA_SMEM_RESERVED = 1024; // the runtime's share of each resident CTA
 
@@ -377,6 +389,95 @@ me_kernel(const __grid_constant__ CUtensorMap ref_early,
   }
 }
 
+// The search of every range me_kernel is not built for (design note 6).
+// One CTA per 8x8 block of `cur` ([H, W], wb blocks a row); `ref` is the
+// [ref_rows, W] plane whose row ref_off holds row 0 of `cur`, and row0 and
+// total_h give candidate validity as in me_kernel. A CTA has the warps its
+// candidates fill, at most WIDE_THREADS threads (one warp at sr = 0), and
+// each thread scans the candidates threadIdx.x, + blockDim.x, ... in scan
+// (packed index) order, summing each SSD from 0.f over rows r (outer) and
+// columns k (inner) with __fsub_rn, __fmul_rn and __fadd_rn as me_kernel
+// does, and keeps its first strict minimum; out-of-frame candidates are
+// skipped unread. The CTA then keeps the smallest SSD and, among equal SSDs, the
+// smallest index: the strict-< scan's choice. An SSD of +inf or NaN never
+// wins, and a block with no winner gets index 0, the scan's initial best.
+constexpr int WIDE_THREADS = 256;
+constexpr int WIDE_WARPS = WIDE_THREADS / 32;
+
+__device__ __forceinline__ void keep_min(float& best, int& best_idx, float s, int idx) {
+  if (s < best || (s == best && idx < best_idx)) {
+    best = s;
+    best_idx = idx;
+  }
+}
+
+__device__ __forceinline__ void warp_min(float& best, int& best_idx) {
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float s = __shfl_down_sync(0xffffffffu, best, off);
+    const int idx = __shfl_down_sync(0xffffffffu, best_idx, off);
+    keep_min(best, best_idx, s, idx);
+  }
+}
+
+__global__ void __launch_bounds__(WIDE_THREADS)
+wide_kernel(const float* __restrict__ ref, const float* __restrict__ cur, int* __restrict__ out,
+            int W, int wb, int ref_off, int row0, int total_h, int sr) {
+  __shared__ float s_cur[BLK * BLK];
+  __shared__ float s_best[WIDE_WARPS];
+  __shared__ int s_idx[WIDE_WARPS];
+  const int by = blockIdx.x / wb * BLK;  // the block's first row in cur
+  const int bx = blockIdx.x % wb * BLK;
+  for (int i = threadIdx.x; i < BLK * BLK; i += blockDim.x) {
+    s_cur[i] = cur[static_cast<long long>(by + i / BLK) * W + bx + i % BLK];
+  }
+  __syncthreads();
+  float c[BLK * BLK];
+#pragma unroll
+  for (int i = 0; i < BLK * BLK; ++i) c[i] = s_cur[i];
+
+  const int total = 2 * sr + 1;
+  const int n = total * total;
+  const int gby = row0 + by;  // global first row of this block
+  float best = __int_as_float(0x7f800000);  // +inf
+  int best_idx = INT_MAX;                   // no winner yet
+  for (int cand = threadIdx.x; cand < n; cand += blockDim.x) {
+    const int dy = cand / total - sr;
+    const int dx = cand % total - sr;
+    if (gby + dy < 0 || gby + dy + BLK > total_h || bx + dx < 0 || bx + dx + BLK > W) continue;
+    const float* win = ref + static_cast<long long>(ref_off + by + dy) * W + bx + dx;
+    float acc = 0.f;
+#pragma unroll
+    for (int r = 0; r < BLK; ++r) {
+#pragma unroll
+      for (int k = 0; k < BLK; ++k) {
+        const float diff = __fsub_rn(c[r * BLK + k], __ldg(win + r * W + k));
+        acc = __fadd_rn(acc, __fmul_rn(diff, diff));
+      }
+    }
+    if (acc < best) {  // strict: this thread's candidates come in scan order
+      best = acc;
+      best_idx = cand;
+    }
+  }
+
+  warp_min(best, best_idx);
+  const int warp = threadIdx.x >> 5;
+  const int lane = threadIdx.x & 31;
+  if (lane == 0) {
+    s_best[warp] = best;
+    s_idx[warp] = best_idx;
+  }
+  __syncthreads();
+  if (warp == 0) {
+    const int warps = blockDim.x >> 5;
+    best = lane < warps ? s_best[lane] : __int_as_float(0x7f800000);
+    best_idx = lane < warps ? s_idx[lane] : INT_MAX;
+    warp_min(best, best_idx);
+    if (lane == 0) out[blockIdx.x] = best_idx == INT_MAX ? 0 : best_idx;
+  }
+}
+
 // cuTensorMapEncodeTiled from the driver, found once through the runtime
 // (no link against libcuda).
 using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -457,9 +558,27 @@ int launch(const float* ref, int ref_rows, int ref_off, const float* cur, int* o
   return static_cast<int>(cudaGetLastError());
 }
 
+int launch_wide(const float* ref, int ref_off, const float* cur, int* out, int H, int W, int sr,
+                int row0, int total_h, cudaStream_t stream) {
+  const long long blocks = static_cast<long long>(H / BLK) * (W / BLK);
+  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  const long long n = (2LL * sr + 1) * (2LL * sr + 1);
+  const int threads = n < WIDE_THREADS ? static_cast<int>((n + 31) / 32 * 32) : WIDE_THREADS;
+  wide_kernel<<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
+      ref, cur, out, W, W / BLK, ref_off, row0, total_h, sr);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// A search range the kernels take: sr >= 0 with (2*sr+1)^2 candidates in an int.
+bool sr_ok(int sr) { return sr >= 0 && (2LL * sr + 1) * (2LL * sr + 1) <= INT_MAX; }
+
+bool is_wide(int sr) { return sr < 1 || sr > MAX_SR; }
+
 int search(const float* ref, int ref_rows, int ref_off, const float* cur, int* out, int H, int W,
            int sr, int row0, int total_h, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!sr_ok(sr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (is_wide(sr)) return launch_wide(ref, ref_off, cur, out, H, W, sr, row0, total_h, s);
   static_assert(MAX_SR == 15, "instantiate launch<1..MAX_SR> below");
   switch (sr) {
     case 1: return launch<1>(ref, ref_rows, ref_off, cur, out, H, W, row0, total_h, s);
@@ -487,8 +606,14 @@ bool frame_ok(int H, int W) { return H > 0 && W > 0 && H % BLK == 0 && W % BLK =
 
 // Both entry points return cudaGetLastError() after the launch (0 on
 // success), or, without launching, cudaErrorInvalidValue for arguments the
-// kernel does not take and cudaErrorNotSupported where the driver cannot
-// describe the planes to the copy engine.
+// kernels do not take and cudaErrorNotSupported where
+// cuTensorMapEncodeTiled cannot describe the planes to the copy engine. Each launches me_kernel<sr> for
+// sr 1..MAX_SR and wide_kernel for every other sr >= 0 whose (2*sr+1)^2
+// fits in an int.
+
+// 1 when a search at range sr launches wide_kernel, else 0 (me_kernel, or
+// a range no kernel takes).
+extern "C" int ivc_motion_search_wide(int sr) { return sr_ok(sr) && is_wide(sr) ? 1 : 0; }
 
 // Whole frame: ref and cur are [H, W].
 extern "C" int ivc_motion_search(const float* ref, const float* cur, int* out, int H, int W,
@@ -504,7 +629,7 @@ extern "C" int ivc_motion_search(const float* ref, const float* cur, int* out, i
 extern "C" int ivc_motion_search_tile(const float* ref_ext, int ext_rows, const float* cur,
                                       int* out, int Ht, int W, int sr, int row0, int total_h,
                                       void* stream) {
-  if (!frame_ok(Ht, W) || sr < 1 || sr > MAX_SR || ext_rows != Ht + 2 * sr || row0 < 0 ||
+  if (!frame_ok(Ht, W) || !sr_ok(sr) || ext_rows != Ht + 2LL * sr || row0 < 0 ||
       row0 % BLK != 0 || row0 > total_h - Ht) {
     return static_cast<int>(cudaErrorInvalidValue);
   }

@@ -16,8 +16,10 @@ frame height.
 
 ``motion_search`` and ``motion_search_tile`` dispatch on the device of
 their inputs: CPU tensors go to the plain PyTorch version, CUDA tensors to
-the hand-written Hopper kernel ``csrc/motion_search.cu`` (or the call
-raises).
+the hand-written Hopper kernels of ``csrc/motion_search.cu`` (or the call
+raises): ``me_kernel<sr>`` for search ranges 1..15, ``wide_kernel`` for
+sr = 0 and sr >= 16. Every sr >= 0 whose ``(2 sr + 1)**2`` candidates fit
+in an int32 is taken, as on the CPU.
 
 ``motion_search_kernel_order`` and ``motion_search_tile_kernel_order``
 repeat the kernel's arithmetic step for step (each SSD summed from 0 in
@@ -35,12 +37,15 @@ import numpy as np
 import torch
 
 # Kernel launches made in this process by ``motion_search_cuda`` (whole
-# frames) and by ``motion_search_tile_cuda`` (row bands).
+# frames) and by ``motion_search_tile_cuda`` (row bands): of ``me_kernel``
+# (search ranges 1..15) in LAUNCHES and TILE_LAUNCHES, of ``wide_kernel``
+# (every other range) in WIDE_LAUNCHES and WIDE_TILE_LAUNCHES.
 LAUNCHES = 0
 TILE_LAUNCHES = 0
+WIDE_LAUNCHES = 0
+WIDE_TILE_LAUNCHES = 0
 
 BLOCK = 8  # block size of the search, the kernel and the codec
-MAX_SEARCH_RANGE = 15  # the kernel is instantiated for search ranges 1..15
 
 
 def motion_search_tile_reference(ref_ext: torch.Tensor, cur_tile: torch.Tensor, row0: int,
@@ -161,7 +166,12 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
 def _lib():
     from ivclab_tpu_torch.runtime import cuda_build
 
-    return bind(cuda_build.load("motion_search"))
+    lib = bind(cuda_build.load("motion_search"))
+    # which kernel a range launches; earlier revisions, which tools/motion_ab.py
+    # may bind, lack it
+    lib.ivc_motion_search_wide.argtypes = [ctypes.c_int]
+    lib.ivc_motion_search_wide.restype = ctypes.c_int
+    return lib
 
 
 def _check_planes(device, **planes: torch.Tensor):
@@ -176,37 +186,44 @@ def _check_planes(device, **planes: torch.Tensor):
             raise ValueError(f"{name} must start on a 16-byte boundary")
 
 
-def _check_search_range(search_range) -> int:
+def _search_range(search_range) -> int:
+    """``search_range`` as an int, or ValueError where no kernel can take it:
+    below 0, or ``(2 sr + 1)**2`` candidates past int32."""
     sr = int(search_range)
-    if not 1 <= sr <= MAX_SEARCH_RANGE:
-        raise ValueError(f"search_range {sr} outside [1, {MAX_SEARCH_RANGE}]: the CUDA kernel "
-                         f"is built for search ranges up to {MAX_SEARCH_RANGE}")
+    if sr < 0 or (2 * sr + 1) ** 2 > 2**31 - 1:
+        raise ValueError(f"search_range {sr}: the kernels take 0 <= sr with (2 sr + 1)**2 "
+                         f"candidates in an int32")
     return sr
 
 
 def motion_search_cuda(ref_image: torch.Tensor, image: torch.Tensor,
                        search_range: int = 4) -> torch.Tensor:
-    """Launch the Hopper kernel (``csrc/motion_search.cu``) on one frame pair.
+    """Launch a Hopper kernel (``csrc/motion_search.cu``) on one frame pair:
+    ``me_kernel`` for search ranges 1..15, ``wide_kernel`` for the others.
 
     Takes contiguous float32 ``[H, W]`` CUDA tensors on one device, H and W
-    multiples of 8, ``1 <= search_range <= 15``; raises on anything else and
-    on a launch error. Runs on the current stream without synchronising.
+    multiples of 8, ``search_range >= 0``; raises on anything else and on a
+    launch error. Runs on the current stream without synchronising.
     """
-    global LAUNCHES
+    global LAUNCHES, WIDE_LAUNCHES
     if ref_image.shape != image.shape:
         raise ValueError("ref_image and image must have the same shape")
     H, W = image.shape
     if H == 0 or W == 0 or H % 8 or W % 8:
         raise ValueError(f"frame {H}x{W} is not a nonzero multiple of 8")
-    sr = _check_search_range(search_range)
+    sr = _search_range(search_range)
     _check_planes(image.device, ref_image=ref_image, image=image)
     out = torch.empty((H // 8, W // 8), dtype=torch.int32, device=image.device)
     stream = torch.cuda.current_stream(image.device).cuda_stream
-    rc = _lib().ivc_motion_search(ref_image.data_ptr(), image.data_ptr(), out.data_ptr(),
-                                  H, W, sr, stream)
+    lib = _lib()
+    rc = lib.ivc_motion_search(ref_image.data_ptr(), image.data_ptr(), out.data_ptr(),
+                               H, W, sr, stream)
     if rc != 0:
         raise RuntimeError(f"motion_search kernel launch failed (cudaError {rc})")
-    LAUNCHES += 1
+    if lib.ivc_motion_search_wide(sr):
+        WIDE_LAUNCHES += 1
+    else:
+        LAUNCHES += 1
     return out
 
 
@@ -233,21 +250,25 @@ def motion_search_tile_cuda(ref_ext: torch.Tensor, cur_tile: torch.Tensor, row0:
     returns an error code, on which this raises, as on a launch error. Runs
     on the current stream without synchronising.
     """
-    global TILE_LAUNCHES
-    sr = _check_search_range(search_range)
+    global TILE_LAUNCHES, WIDE_TILE_LAUNCHES
+    sr = _search_range(search_range)
     _check_planes(cur_tile.device, ref_ext=ref_ext, cur_tile=cur_tile)
     if ref_ext.shape[1] != cur_tile.shape[1]:
         raise ValueError("ref_ext and cur_tile must have the same width")
     Ht, W = cur_tile.shape
     out = torch.empty((Ht // 8, W // 8), dtype=torch.int32, device=cur_tile.device)
     stream = torch.cuda.current_stream(cur_tile.device).cuda_stream
-    rc = _lib().ivc_motion_search_tile(ref_ext.data_ptr(), ref_ext.shape[0], cur_tile.data_ptr(),
-                                       out.data_ptr(), Ht, W, sr, int(row0), int(total_h), stream)
+    lib = _lib()
+    rc = lib.ivc_motion_search_tile(ref_ext.data_ptr(), ref_ext.shape[0], cur_tile.data_ptr(),
+                                    out.data_ptr(), Ht, W, sr, int(row0), int(total_h), stream)
     if rc != 0:
         raise RuntimeError(f"motion_search_tile kernel refused or failed (cudaError {rc}): "
                            f"band {Ht}x{W} with {ref_ext.shape[0]} reference rows, "
                            f"row0={row0}, total_h={total_h}, sr={sr}")
-    TILE_LAUNCHES += 1
+    if lib.ivc_motion_search_wide(sr):
+        WIDE_TILE_LAUNCHES += 1
+    else:
+        TILE_LAUNCHES += 1
     return out
 
 

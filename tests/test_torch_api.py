@@ -25,6 +25,7 @@ import ivclab_tpu.config as jconfig
 import ivclab_tpu.entropy as jentropy
 import ivclab_tpu.models as jmodels
 import ivclab_tpu.ops as jops
+import ivclab_tpu.runtime as jruntime
 import ivclab_tpu.utils as jutils
 from ivclab_tpu.ops import dct as jdct, quant as jquant
 from ivclab_tpu.utils import fixtures as jfix, shape as jshape
@@ -34,6 +35,7 @@ import ivclab_tpu_torch.config as tconfig
 import ivclab_tpu_torch.entropy as tentropy
 import ivclab_tpu_torch.models as tmodels
 import ivclab_tpu_torch.ops as tops
+import ivclab_tpu_torch.runtime as truntime
 import ivclab_tpu_torch.utils as tutils
 from ivclab_tpu_torch.ops.dct import (
     DiscreteCosineTransform,
@@ -290,6 +292,7 @@ _PACKAGES = [
     (jentropy, tentropy),
     (jutils, tutils),
     (jmodels, tmodels),
+    (jruntime, truntime),
 ]
 
 
@@ -312,7 +315,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
 
     code = ("import sys, ivclab_tpu_torch; from ivclab_tpu_torch import PredictiveCodec, "
             "yuv420compression, FilterPipeline, three_pixels_predictor; import "
-            "ivclab_tpu_torch.parallel, ivclab_tpu_torch.utils.huffman_helpers; "
+            "ivclab_tpu_torch.parallel, ivclab_tpu_torch.utils.huffman_helpers, "
+            "ivclab_tpu_torch.cli, ivclab_tpu_torch.runtime, ivclab_tpu_torch.tools.dryrun; "
             "print([m for m in sys.modules if m.startswith(('jax', 'ivclab_tpu.', 'PIL', "
             "'matplotlib'))])")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -6,8 +6,12 @@ GPU machine, which has no JAX (tests/conftest.py imports it, hence
 
     python3 -m pytest tests/test_torch_cuda.py --noconftest -q
 
-It holds the kernel's two entry points (whole frames and halo-extended row
-bands) against their plain PyTorch versions on the card, the GOP codec's
+It holds the kernels' two entry points (whole frames and halo-extended row
+bands) against their plain PyTorch versions on the card (``me_kernel`` at
+search ranges 1..15; ``wide_kernel`` at 0, 16, 17, 24, 32 and 255, on
+float, tie-heavy, +inf-SSD and no-winner inputs, each launch counted on
+its own kernel's counter; the codecs at sr 0 and 16 give the CPU port's
+bytes), the GOP codec's
 CUDA pack against its CPU pack, the sharded codec on the card against the
 fused pack, and the intra codec's CUDA container bytes against its CPU
 bytes; the adaptive video codec's bytes, launches and decodes on the card
@@ -160,16 +164,141 @@ def test_first_and_last_band_equal_kernel_order_plain(cuda_device, sr):
         assert_exact(got, whole[i * band_h // 8:(i + 1) * band_h // 8], f"band {i} vs whole")
 
 
+def _launch_counts():
+    return (tmotion.LAUNCHES, tmotion.TILE_LAUNCHES, tmotion.WIDE_LAUNCHES,
+            tmotion.WIDE_TILE_LAUNCHES)
+
+
 @pytest.mark.cuda
-def test_kernel_refuses_search_range_16(cuda_device):
+@pytest.mark.parametrize("sr", [-1, 23170])
+def test_kernel_refuses_search_ranges_no_kernel_takes(cuda_device, sr):
+    """Below 0, or (2 sr + 1)**2 candidates past int32 (sr = 23170)."""
     x = torch.zeros((64, 64), device=cuda_device)
-    ext = torch.zeros((64 + 32, 64), device=cuda_device)
-    before = (tmotion.LAUNCHES, tmotion.TILE_LAUNCHES)
-    with pytest.raises(ValueError, match="up to 15"):
-        tmotion.motion_search_cuda(x, x, 16)
-    with pytest.raises(ValueError, match="up to 15"):
-        tmotion.motion_search_tile_cuda(ext, x, 0, 64, 16)
-    assert (tmotion.LAUNCHES, tmotion.TILE_LAUNCHES) == before
+    ext = torch.zeros((64 + 2 * max(sr, 0), 64), device=cuda_device)
+    before = _launch_counts()
+    with pytest.raises(ValueError, match="int32"):
+        tmotion.motion_search_cuda(x, x, sr)
+    with pytest.raises(ValueError, match="int32"):
+        tmotion.motion_search_tile_cuda(ext, x, 0, 64, sr)
+    assert _launch_counts() == before
+
+
+WIDE_RANGES = [0, 16, 17, 24, 32]
+
+
+def _wide_check(R, C, sr, band_h, label):
+    """Both entry points at range sr against the kernel-order plain version,
+    bit for bit, every launch on the wide kernel's counters."""
+    H = R.shape[0]
+    before = _launch_counts()
+    got = tmotion.motion_search(R, C, sr)
+    torch.cuda.synchronize()
+    assert _launch_counts() == (before[0], before[1], before[2] + 1, before[3]), label
+    assert_exact(got, tmotion.motion_search_kernel_order(R, C, sr), f"{label} whole frame")
+    for i in range(H // band_h):
+        ext, band = _band(R, C, i, band_h, sr)
+        n = tmotion.WIDE_TILE_LAUNCHES
+        a = tmotion.motion_search_tile(ext, band, i * band_h, H, sr)
+        torch.cuda.synchronize()
+        assert tmotion.WIDE_TILE_LAUNCHES == n + 1
+        assert_exact(a, tmotion.motion_search_tile_kernel_order(ext, band, i * band_h, H, sr),
+                     f"{label} band {i}")
+        assert_exact(a, got[i * band_h // 8:(i + 1) * band_h // 8], f"{label} band {i} vs whole")
+    assert (tmotion.LAUNCHES, tmotion.TILE_LAUNCHES) == before[:2]
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W", [(40, 56), (64, 384), (288, 352)])
+@pytest.mark.parametrize("sr", WIDE_RANGES)
+def test_wide_kernel_equals_kernel_order_plain_on_float_frames(cuda_device, H, W, sr):
+    rng = np.random.default_rng(7000 + 10 * sr + H)
+    ref = (rng.random((H, W)) * 255).astype(np.float32)
+    cur = (np.roll(ref, (5, -7), (0, 1)) + rng.normal(0, 0.3, (H, W))).astype(np.float32)
+    _wide_check(torch.from_numpy(ref).to(cuda_device), torch.from_numpy(cur).to(cuda_device),
+                sr, _bands_of(H), f"float {H}x{W} sr={sr}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pattern", ["flat", "periodic", "inf-ssd", "all-inf", "all-nan"])
+@pytest.mark.parametrize("sr", WIDE_RANGES)
+def test_wide_kernel_on_ties_and_non_finite_ssds(cuda_device, pattern, sr):
+    """Ties (flat zero frames, where zero-filled out-of-frame candidates must
+    not win; a 2-pixel-periodic pattern); SSDs that overflow to +inf at some
+    candidates (never a winner); and blocks with no winner at all (+inf or
+    NaN at every candidate: index 0)."""
+    H, W = 64, 128
+    rng = np.random.default_rng(800 + sr)
+    if pattern == "flat":
+        ref = cur = np.zeros((H, W), np.float32)
+    elif pattern == "periodic":
+        yy, xx = np.indices((H, W))
+        ref = (40.0 * (2 * (yy % 2) + xx % 2) + 10.0).astype(np.float32)
+        cur = np.roll(ref, (1, 0), (0, 1))
+    elif pattern == "inf-ssd":
+        ref = (rng.random((H, W)) * 255).astype(np.float32)
+        ref[rng.random((H, W)) < 0.02] = 3e38  # (3e38 - c)^2 overflows
+        cur = (np.roll(ref, (2, 3), (0, 1)) + rng.normal(0, 0.3, (H, W))).astype(np.float32)
+        cur = np.minimum(cur, 255).astype(np.float32)
+    elif pattern == "all-inf":
+        ref = np.full((H, W), 3e38, np.float32)
+        cur = np.full((H, W), -3e38, np.float32)
+    else:
+        ref = (rng.random((H, W)) * 255).astype(np.float32)
+        cur = np.full((H, W), np.nan, np.float32)
+    got = _wide_check(torch.from_numpy(ref).to(cuda_device),
+                      torch.from_numpy(np.ascontiguousarray(cur)).to(cuda_device), sr, 16,
+                      f"{pattern} sr={sr}")
+    if pattern in ("all-inf", "all-nan"):
+        assert int(got.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+def test_wide_kernel_at_search_range_255(cuda_device):
+    """The largest range the containers store (a uint8): 261,121 candidates
+    a block, on a small frame."""
+    rng = np.random.default_rng(255)
+    ref = (rng.random((64, 64)) * 255).astype(np.float32)
+    cur = (np.roll(ref, (9, -20), (0, 1)) + rng.normal(0, 0.3, (64, 64))).astype(np.float32)
+    _wide_check(torch.from_numpy(ref).to(cuda_device), torch.from_numpy(cur).to(cuda_device),
+                255, 32, "float 64x64 sr=255")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sr", [1, 8, 15])
+def test_search_ranges_1_to_15_stay_on_me_kernel(cuda_device, sr):
+    x = torch.from_numpy((np.random.default_rng(sr).random((64, 128)) * 255)
+                         .astype(np.float32)).to(cuda_device)
+    before = _launch_counts()
+    tmotion.motion_search(x, x.roll(1, 1).contiguous(), sr)
+    ext, band = _band(x, x, 1, 16, sr)
+    tmotion.motion_search_tile(ext, band, 16, 64, sr)
+    torch.cuda.synchronize()
+    assert _launch_counts() == (before[0] + 1, before[1] + 1, before[2], before[3])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sr", [0, 16])
+@pytest.mark.parametrize("codec", ["VideoCodec", "FusedVideoCodec"])
+def test_codecs_at_wide_search_ranges_match_cpu_bytes(cuda_device, codec, sr):
+    """3 frames at 256x480 through the wide kernel: the CPU port's bytes,
+    one wide launch per P-frame in the container encode."""
+    y = luma(fixtures.video("bench", 3, (256, 480)))
+    before = tmotion.WIDE_LAUNCHES
+    if codec == "VideoCodec":
+        blob = VideoCodec(1.0, search_range=sr, device=cuda_device).encode_to_container(y)
+        want = VideoCodec(1.0, search_range=sr, device="cpu").encode_to_container(y)
+        torch.cuda.synchronize()
+        assert tmotion.WIDE_LAUNCHES - before == 2
+    else:
+        g = FusedVideoCodec(1.0, sr, device=cuda_device).train(y[:2])
+        c = FusedVideoCodec(1.0, sr, device="cpu").train(y[:2])
+        mid = tmotion.WIDE_LAUNCHES
+        blob = g.encode_to_container(y)
+        torch.cuda.synchronize()
+        assert mid - before == 1 and tmotion.WIDE_LAUNCHES - mid == 2
+        want = c.encode_to_container(y)
+    assert blob == want
 
 
 @pytest.mark.cuda

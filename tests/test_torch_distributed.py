@@ -6,7 +6,11 @@ Two worker processes join one process group through the environment
 tile=2`` mesh whose tile axis crosses the process boundary: the fixed-code
 sharded codec, and the per-frame adaptive ``ShardedAdaptiveEncoder``.
 Rank 0's container bytes must equal the port's in-process bytes and the
-JAX package's single-process bytes.
+JAX package's single-process bytes. In both runs the ranks also exchange
+``DistributedHeartbeat``s over the process group's store and must each
+see both ranks alive, and the adaptive run ends with
+``dryrun_multichip(2, distributed=True)`` over the two ranks (asserted in
+the worker).
 """
 
 from __future__ import annotations

@@ -9,7 +9,11 @@ stream gather are real messages between the processes. Each rank packs its
 own band; rank 0 assembles the container bytes of two GOPs and writes them
 (length-prefixed) to the output path. With ``adaptive`` the ranks run
 ``ShardedAdaptiveEncoder`` (per-frame codebooks) instead of the fixed-code
-codec. Imports nothing of JAX.
+codec, and then ``tools.dryrun.dryrun_multichip(2, distributed=True)``
+over the same two ranks. Before they finish, the ranks exchange
+heartbeats through the process group's store
+(``runtime.elastic.DistributedHeartbeat``) and each must see both alive.
+Imports nothing of JAX.
 
     python tests/torch_distributed_worker.py OUT CAP BLOCK_WORDS GROUP_WORDS
     python tests/torch_distributed_worker.py OUT adaptive
@@ -38,6 +42,8 @@ def main() -> int:
         make_mesh,
         shard_frames,
     )
+    from ivclab_tpu_torch.runtime.elastic import DistributedHeartbeat
+    from ivclab_tpu_torch.tools.dryrun import dryrun_multichip
     from ivclab_tpu_torch.utils import fixtures
 
     torch.set_num_threads(1)
@@ -54,6 +60,7 @@ def main() -> int:
         enc = ShardedAdaptiveEncoder(mesh, gop_len, H // 2, W)
         for g in range(T // gop_len):  # one GOP per call on a one-GOP mesh
             blobs += enc.encode(y[g * gop_len:(g + 1) * gop_len])
+        dryrun_multichip(2, distributed=True)  # raises on any failed check
     else:
         cap, bw, gw = (int(x) for x in sys.argv[2:5])
         # the same deterministic training on every rank
@@ -66,6 +73,12 @@ def main() -> int:
         with open(out_path, "wb") as f:
             for blob in blobs:
                 f.write(struct.pack("<Q", len(blob)) + blob)
+    dist.barrier()
+    heartbeat = DistributedHeartbeat()  # the default process group's store
+    assert heartbeat.report() == 1
+    dist.barrier()  # both ranks have reported
+    assert heartbeat.poll() == {0: 1, 1: 1}, heartbeat.poll()
+    assert heartbeat.alive_hosts() == [0, 1] and heartbeat.dead_hosts() == []
     dist.barrier()
     print(f"WORKER_OK {dist.get_rank()}", flush=True)
     dist.destroy_process_group()
