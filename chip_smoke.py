@@ -17,7 +17,8 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    kernel's summation) on the float fixture, on random float frames at
    288x352, 40x56 and 64x384 for sr 1..7 and for the wide kernel's sr 0,
    16 and 32, at 40x56, 64x384 and 1088x1920 for sr 8 and 15, at
-   1088x1920 for sr 16, and on a 2-pixel-periodic pattern where many
+   1088x1920 for sr 16, at 64x384 for sr 64 (the wide kernel's candidates
+   in two chunks of dx), and on a 2-pixel-periodic pattern where many
    candidates tie, each case on the kernel its range belongs to
    (``me_kernel`` for 1..15, ``wide_kernel`` for the rest); search ranges
    -1 and 23170 are refused; times both at 1088x1920 (the kernel by its
@@ -38,9 +39,9 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    float fixture, and the bands together equal to the whole-frame kernel;
    bit for bit against the kernel-order plain version at every band of
    phase 2's float and tie-heavy cases (sr 8, 15 and the wide kernel's 0,
-   16 and 32 included); bad row windows are refused; times both on a
+   16, 32 and 64 included); bad row windows are refused; times both on a
    272x1920 band, the kernel at sr 8 and 15 and the wide kernel at sr 0,
-   16 and 32;
+   16 and 32, and the plain version at sr 16;
 6. the sharded path at full width: ``build_sharded_video_codec`` on an
    in-process gop=2 x tile=4 mesh on the card over 16 1920x1088 frames
    (two 8-frame GOPs, 272-row bands), against ``FusedVideoCodec.pack_gop``
@@ -101,13 +102,15 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    foreman frames for the three codebook policies with ``--trace`` (stage
    times), at ``--search-range 16`` (the wide kernel), 3 frames at sr 0
    and 16 for both codecs, ``--mesh-gop 2 --mesh-tile 1`` over 16 frames
-   in GOPs of 8 (the band entry point); ``decode-video`` to ``.npy``
+   in GOPs of 8 (the band entry point) at sr 4 and at sr 16 (the wide
+   kernel's band entry point); ``decode-video`` to ``.npy``
    (within 1 level of the CPU's) and ``info`` of the sr=16 stream;
    ``rd-sweep --kind video --frames 3`` (every point equal to the CPU's);
    ``tools/dryrun.py::dryrun_multichip(8, "cuda")`` on a 2x4 mesh.
 
 The line before the last is a JSON list of the kernels with their launch
-counts over every main path above, times and bounds; the last line is
+counts over every main path above, times and bounds (the wide kernel's
+two entry points each an entry of its own); the last line is
 ``{"ok": true, "device": {...}}``.
 """
 
@@ -170,16 +173,16 @@ def kernel_order_cases(fy):
     """(label, ref, cur, sr, band height) of the bit-for-bit checks against
     the kernel-order plain version: the float fixture pair, random float
     frames at three sizes for sr 1..7 and the wide kernel's sr 0, 16 and 32,
-    at 40x56, 64x384 and 1088x1920 for sr 8 and 15 and at 1088x1920 for sr
-    16, and a 2-pixel-periodic pattern on which every even displacement
-    ties (sr 1..7 and 0, 16, 32)."""
+    at 40x56, 64x384 and 1088x1920 for sr 8 and 15, at 1088x1920 for sr 16
+    and at 64x384 for sr 64, and a 2-pixel-periodic pattern on which every
+    even displacement ties (sr 1..7 and 0, 16, 32)."""
     import numpy as np
 
     rng = np.random.default_rng(SEED + 1)
     cases = [("float fixture 1088x1920 sr=4", fy[0], fy[1], 4, 272)]
     sizes = [((288, 352, 144), (*range(1, 8), *WIDE_RANGES)),
              ((40, 56, 8), (*range(1, 8), 8, 15, *WIDE_RANGES)),
-             ((64, 384, 16), (*range(1, 8), 8, 15, *WIDE_RANGES)),
+             ((64, 384, 16), (*range(1, 8), 8, 15, *WIDE_RANGES, 64)),
              ((1088, 1920, 272), (8, 15, 16))]
     for (H, W, band_h), srs in sizes:
         for sr in srs:
@@ -910,10 +913,10 @@ def run_cli(*argv) -> dict:
     return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
-def cli_phase(card: str) -> tuple[int, int, int]:
+def cli_phase(card: str) -> tuple[int, int, int, int]:
     """Phase 12: the CLI on the card, in process, each run against the same
     run with ``--device cpu``. Returns the (me_kernel frame, me_kernel band,
-    wide_kernel) launches of its main-path runs."""
+    wide_kernel frame, wide_kernel band) launches of its main-path runs."""
     import tempfile
     from pathlib import Path
 
@@ -923,7 +926,7 @@ def cli_phase(card: str) -> tuple[int, int, int]:
     from ivclab_tpu_torch.tools.dryrun import dryrun_multichip
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
-    totals = [0, 0, 0]
+    totals = [0, 0, 0, 0]
 
     def on_card(label, argv, want):
         """One CLI run on the card (launches counted) and its CPU twin."""
@@ -932,9 +935,8 @@ def cli_phase(card: str) -> tuple[int, int, int]:
         out = run_cli("--device", "cuda", *argv(tmp / f"{label}.cuda"))
         torch.cuda.synchronize()
         counts = launch_counts()
-        totals[0] += counts[0]
-        totals[1] += counts[1]
-        totals[2] += counts[2] + counts[3]
+        for k in range(4):
+            totals[k] += counts[k]
         ref = run_cli("--device", "cpu", *argv(tmp / f"{label}.cpu"))
         same = (tmp / f"{label}.cuda").read_bytes() == (tmp / f"{label}.cpu").read_bytes()
         print(f"[cli] {label}: {out.get('container_bytes')} bytes, stream == --device cpu "
@@ -971,6 +973,9 @@ def cli_phase(card: str) -> tuple[int, int, int]:
     on_card(f"first-p-frame CIF T={mesh_T} --gop 8 mesh 2x1", lambda p: [
         "--trace", *enc, str(p), "--frames", str(mesh_T), "--gop", "8",
         "--mesh-gop", "2", "--mesh-tile", "1"], (8, 14, 0, 0))
+    on_card(f"first-p-frame CIF T={mesh_T} --gop 8 mesh 2x1 sr=16", lambda p: [
+        *enc, str(p), "--frames", str(mesh_T), "--gop", "8", "--mesh-gop", "2",
+        "--mesh-tile", "1", "--search-range", "16"], (0, 0, 8, 14))
 
     # decode-video and info on the card's sr=16 stream, against the CPU
     stream = tmp / f"first-p-frame CIF T={T} sr=16.cuda"
@@ -1016,8 +1021,8 @@ def cli_phase(card: str) -> tuple[int, int, int]:
     dryrun_multichip(8, "cuda")
     torch.cuda.synchronize()
     counts = launch_counts()
-    totals[0] += counts[0]
-    totals[1] += counts[1]
+    for k in range(4):
+        totals[k] += counts[k]
     print(f"[cli] dryrun_multichip(8, 'cuda'): passed in {time.perf_counter() - t0:.2f} s, "
           f"launches {counts}")
     check(counts[1] > 0, "dryrun_multichip launched no band search")
@@ -1306,6 +1311,7 @@ def main() -> None:
     check(worst_band_gap < 1e-5, "a float band mismatch is not a near-tie")
     check(np.array_equal(np.concatenate(got), whole), "float bands != whole-frame kernel")
 
+    wide_tile_err = 0
     for label, r_np, c_np, sr, bh in order_cases:
         R2, C2 = torch.from_numpy(r_np).to(dev), torch.from_numpy(c_np).to(dev)
         H2 = R2.shape[0]
@@ -1320,7 +1326,7 @@ def main() -> None:
             n += a.numel()
             err = int((a - b).abs().max())
             if wide:
-                wide_err = max(wide_err, err)
+                wide_tile_err = max(wide_tile_err, err)
             else:
                 tile_err = max(tile_err, err)
         after = launch_counts()
@@ -1370,6 +1376,7 @@ def main() -> None:
         print(f"[band] {band_h}x{W} band sr={sr} kernel {us:.3f} us device (mean of 20 launches); "
               f"bound {bound[0] * 1e3:.3f} us ({bound[1]}), {bound[0] * 1e3 / us:.3f} of it "
               f"({card})")
+    wide_band = {}
     for sr in WIDE_RANGES:
         ext_s, band_s = band_of(R, C, 1, band_h, sr)
         motion.motion_search_tile_cuda(ext_s, band_s, band_h, H, sr)
@@ -1377,10 +1384,17 @@ def main() -> None:
             lambda: motion.motion_search_tile_cuda(ext_s, band_s, band_h, H, sr), 10,
             "wide_kernel")))
         bound = motion_search_bound(band_h + 2 * sr, band_h, W, sr)
+        wide_band[sr] = (us / 1e3, bound)
         print(f"[band] {band_h}x{W} band sr={sr} wide_kernel {us:.3f} us device (mean of 10 "
               f"launches); bound {bound[0] * 1e3:.3f} us ({bound[1]}; "
               f"{valid_candidate_share(band_h, W, sr, band_h, H):.4f} of the candidates in the "
               f"frame), {bound[0] * 1e3 / us:.4f} of it ({card})")
+    wide_band_ms, wide_band_bound = wide_band[16]
+    ext_s, band_s = band_of(R, C, 1, band_h, 16)
+    wide_band_plain_ms = cuda_ms(
+        lambda: motion.motion_search_tile_reference(ext_s, band_s, band_h, H, 16), 2)
+    print(f"[band] {band_h}x{W} band sr=16 plain {wide_band_plain_ms:.3f} ms per call (CUDA "
+          f"events, mean of 2) ({card})")
 
     # ------------------------------------- 6. the sharded path at full width
     from ivclab_tpu_torch import parallel
@@ -1470,10 +1484,11 @@ def main() -> None:
     library_phase(dev, card)
 
     # ------------------------------------------- 12. the CLI on the card
-    cli_whole, cli_band, wide_launches = cli_phase(card)
+    cli_whole, cli_band, wide_launches, wide_tile_launches = cli_phase(card)
     launches += cli_whole
     tile_launches += cli_band
-    check(wide_launches > 0, "the CLI runs launched no wide_kernel")
+    check(wide_launches > 0, "the CLI runs launched no wide_kernel on a frame")
+    check(wide_tile_launches > 0, "the CLI runs launched no wide_kernel on a band")
 
     print(json.dumps({"kernels": [{
         "name": "motion_search",
@@ -1510,6 +1525,18 @@ def main() -> None:
         "plain_ms": wide_plain_ms,
         "bound_ms": wide_bound[0],
         "bound_by": wide_bound[1],
+        "library_ms": None,
+    }, {
+        "name": "motion_search_tile_wide",
+        "route": "cuda",
+        "source": "ivclab_tpu_torch/csrc/motion_search.cu",
+        "replaces": "ivclab_tpu/ops/motion_pallas.py:98",
+        "launches": wide_tile_launches,
+        "max_abs_err": wide_tile_err,
+        "ms": wide_band_ms,  # the 272x1920 band at sr=16
+        "plain_ms": wide_band_plain_ms,
+        "bound_ms": wide_band_bound[0],
+        "bound_by": wide_band_bound[1],
         "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {

@@ -84,15 +84,54 @@
 //     a CTA's two buffers take up to 139 KB of shared memory at sr = 15
 //     (one CTA per SM there, two at sr = 8).
 //  6. Every other search range (sr = 0, and sr >= 16, where one warp per dy
-//     would need more than 32 warps a CTA) runs a second, simple kernel,
-//     wide_kernel, with sr as a runtime argument: one CTA per 8x8 block
-//     (256 threads, one warp at sr = 0), the threads striding over the
-//     (2*sr+1)^2 candidates in scan order, out-of-frame candidates never
-//     read, the reference read through the read-only path, then a CTA
-//     reduction to the smallest SSD and, among equal SSDs, the smallest
-//     packed index (what the strict < scan keeps). It stages nothing: at
-//     sr = 16 it does 13x the work of sr = 4 with none of the reuse above,
-//     and it is the place to start when wide ranges need speed.
+//     would need more than 32 warps a CTA) runs a second kernel,
+//     wide_kernel, with sr a runtime argument. It replaces both TPU kernels
+//     (_me_kernel, _me_tile_kernel) at those ranges, through both entry
+//     points. At sr >= 16 it is bound by operations like me_kernel
+//     (blocks * (2*sr+1)^2 * 64 * 3: 0.102 ms at 67 TFLOP/s for a
+//     1088x1920 frame at sr = 16, 0.395 ms at sr = 32), and since the SSD
+//     may not fuse, by the issue floor above (0.204 and 0.790 ms); at
+//     sr = 0 by the bytes (5.0 us). What it does about that:
+//     a. A CTA owns a 16x2-block tile, as me_kernel does, with me_kernel's
+//        lane map (one lane, one block; free of bank conflicts, note 3),
+//        and is persistent over tiles (blockIdx.x, + gridDim.x, ...): a
+//        frame is 1,020 tiles on 3 CTAs of 8 warps per SM, a band 255.
+//     b. The tile's candidates (clipped to those some block of the tile
+//        can take, so chunks wholly outside the frame are never read) are
+//        cut into chunks of at most 8 dy rows by 72 dx columns, each from a
+//        column on a 16-byte boundary, up to 3 masked columns before the
+//        first candidate (a box started off that boundary stopped the
+//        kernel with an illegal-instruction fault on the H100). One thread
+//        stages a chunk by TMA into one of two buffers while the CTA
+//        searches the other: the 16 x 204 reference window of each block
+//        row (planes A and B, B from 4 columns further left as in note 3)
+//        and the tile's current rows (C and D), 34,816 bytes. Shared memory
+//        is 71,696 bytes at every sr: every range up to the int32 limit
+//        runs the same kernel at the same occupancy.
+//     c. A work unit is one dy and one pass of up to 8 dx: each lane loads
+//        a window row as four float4s once and feeds 8 accumulators from
+//        it (6 shared loads per 192 FP32 operations), with the row loop as
+//        in search_passes, unrolled by 2 (3% faster than 1, as fast as 4,
+//        on the H100 at sr 16 and 32). The warps stride over a chunk's
+//        units; the last pass of a dy runs a kernel body compiled for just
+//        the dx left (1..7), so no accumulator sums a column past dx = +sr
+//        (where it would alias a candidate of the next dy) and no lane
+//        time is spent on it. No integer divide runs per candidate.
+//     d. The order of chunks and warps is free: each lane keeps the
+//        lexicographic (SSD, packed index) minimum of its units (keep_min),
+//        and warp 0 combines the 8 warps' minima per tile the same way.
+//        That is the strict-< scan's choice whatever the order: the first
+//        index of the smallest finite SSD. +inf and NaN never win, and a
+//        block with no winner gets index 0, the scan's initial best.
+//     e. sr = 0 runs the same path: one dy, one pass of one dx.
+//     On the H100 (700 W) a 1088x1920 frame takes 9.3 us / 0.31 ms /
+//     1.13 ms at sr 0 / 16 / 32, 0.67 and 0.70 of the issue floor at sr
+//     16 and 32 (the one-CTA-per-block version it replaced: 43 us / 0.78 ms
+//     / 1.9 ms). Above the floor, by count and not timed one by one: a
+//     row's 6 loads, pointer steps and branch beside its 192 FP32
+//     instructions, each unit's masks and minimum, the tail of 1,020
+//     tiles on 396 CTAs (8 tiles on some SMs, 7.73 on average), and the
+//     sync at each chunk.
 // Each candidate's SSD is summed as before: rows r = 0..7 outer, columns
 // k = 0..7 inner, __fsub_rn, __fmul_rn and __fadd_rn from 0.f, so the
 // indices equal the one-thread-per-block kernel's on every finite input.
@@ -390,19 +429,28 @@ me_kernel(const __grid_constant__ CUtensorMap ref_early,
 }
 
 // The search of every range me_kernel is not built for (design note 6).
-// One CTA per 8x8 block of `cur` ([H, W], wb blocks a row); `ref` is the
-// [ref_rows, W] plane whose row ref_off holds row 0 of `cur`, and row0 and
-// total_h give candidate validity as in me_kernel. A CTA has the warps its
-// candidates fill, at most WIDE_THREADS threads (one warp at sr = 0), and
-// each thread scans the candidates threadIdx.x, + blockDim.x, ... in scan
-// (packed index) order, summing each SSD from 0.f over rows r (outer) and
-// columns k (inner) with __fsub_rn, __fmul_rn and __fadd_rn as me_kernel
-// does, and keeps its first strict minimum; out-of-frame candidates are
-// skipped unread. The CTA then keeps the smallest SSD and, among equal SSDs, the
-// smallest index: the strict-< scan's choice. An SSD of +inf or NaN never
-// wins, and a block with no winner gets index 0, the scan's initial best.
+// Candidate validity, ref_off, row0 and total_h are as in me_kernel.
 constexpr int WIDE_THREADS = 256;
 constexpr int WIDE_WARPS = WIDE_THREADS / 32;
+constexpr int WIDE_MIN_CTAS = 3;                       // resident CTAs per SM
+constexpr int DXP = 8;                                 // dx of a full pass
+constexpr int CHUNK_DY = 8;                            // dy rows of a chunk
+constexpr int CHUNK_DX = 9 * DXP;                      // dx columns of a chunk
+constexpr int WIN_H = CHUNK_DY + BLK;                  // window rows of a block row (15 read)
+constexpr int WIN_W = TILE_W + CHUNK_DX + 4;           // window columns; plane B starts 4 left
+constexpr int WIN_BYTES = WIN_H * WIN_W * 4;
+constexpr int WCUR_BYTES = BLK * CUR_BOX_W * 4;        // the current rows of one block row
+constexpr int W_OFF_B = WIN_BYTES;
+constexpr int W_OFF_C = 2 * WIN_BYTES;
+constexpr int W_OFF_D = W_OFF_C + WCUR_BYTES;
+constexpr int W_STAGE_BYTES = W_OFF_D + WCUR_BYTES;
+// two chunk buffers, their mbarriers, then each thread's minimum
+constexpr int WIDE_SMEM_BYTES = 2 * W_STAGE_BYTES + 2 * 8 + WIDE_THREADS * 8;
+static_assert(WIN_W <= 256 && WIN_W * 4 % 16 == 0, "a window row is one TMA box row");
+static_assert(WIN_BYTES % 128 == 0 && WCUR_BYTES % 128 == 0,
+              "every copy must land on a 128-byte boundary");
+static_assert(WIDE_MIN_CTAS * (WIDE_SMEM_BYTES + CTA_SMEM_RESERVED) <= SM_SMEM,
+              "the shared memory must hold WIDE_MIN_CTAS CTAs");
 
 __device__ __forceinline__ void keep_min(float& best, int& best_idx, float s, int idx) {
   if (s < best || (s == best && idx < best_idx)) {
@@ -411,70 +459,218 @@ __device__ __forceinline__ void keep_min(float& best, int& best_idx, float s, in
   }
 }
 
-__device__ __forceinline__ void warp_min(float& best, int& best_idx) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    const float s = __shfl_down_sync(0xffffffffu, best, off);
-    const int idx = __shfl_down_sync(0xffffffffu, best_idx, off);
-    keep_min(best, best_idx, s, idx);
-  }
+// What one tile of wide_kernel searches: its first pixel column x0 and row
+// y0 in cur, the first candidate dy_lo, dx_min that any of its blocks in
+// the frame can take, and ny x nx candidates from dy_lo and dx_lo, in
+// chunks of CHUNK_DY rows by CHUNK_DX columns (ncx a row, n_chunks in all;
+// dy outer). dx_lo is dx_min rounded down to a multiple of 4: a TMA box
+// starts on a 16-byte boundary of the row, and the up to 3 columns before
+// dx_min are masked.
+struct WideTile {
+  int x0, y0, dy_lo, dx_min, dx_lo, ny, nx, ncx, n_chunks;
+};
+
+__device__ __forceinline__ WideTile wide_tile(int t, int tiles_x, int H, int W, int row0,
+                                              int total_h, int sr) {
+  WideTile w;
+  const int ty = t / tiles_x;
+  w.x0 = (t - ty * tiles_x) * TILE_W;
+  w.y0 = ty * TBY * BLK;
+  const int last_bx = min(w.x0 + TILE_W, W) - BLK;      // its last block column in the frame
+  const int last_by = min(w.y0 + TBY * BLK, H) - BLK;   // and row
+  // a block at global row g takes -g <= dy <= total_h - 8 - g, at column x
+  // -x <= dx <= W - 8 - x: over the tile's blocks, one interval each way,
+  // which holds dy = dx = 0
+  w.dy_lo = max(-sr, -(row0 + last_by));
+  w.ny = min(sr, total_h - BLK - (row0 + w.y0)) - w.dy_lo + 1;
+  w.dx_min = max(-sr, -last_bx);
+  w.dx_lo = w.dx_min & ~3;
+  w.nx = min(sr, W - BLK - w.x0) - w.dx_lo + 1;
+  w.ncx = (w.nx + CHUNK_DX - 1) / CHUNK_DX;
+  w.n_chunks = w.ncx * ((w.ny + CHUNK_DY - 1) / CHUNK_DY);
+  return w;
 }
 
-__global__ void __launch_bounds__(WIDE_THREADS)
-wide_kernel(const float* __restrict__ ref, const float* __restrict__ cur, int* __restrict__ out,
-            int W, int wb, int ref_off, int row0, int total_h, int sr) {
-  __shared__ float s_cur[BLK * BLK];
-  __shared__ float s_best[WIDE_WARPS];
-  __shared__ int s_idx[WIDE_WARPS];
-  const int by = blockIdx.x / wb * BLK;  // the block's first row in cur
-  const int bx = blockIdx.x % wb * BLK;
-  for (int i = threadIdx.x; i < BLK * BLK; i += blockDim.x) {
-    s_cur[i] = cur[static_cast<long long>(by + i / BLK) * W + bx + i % BLK];
-  }
-  __syncthreads();
-  float c[BLK * BLK];
-#pragma unroll
-  for (int i = 0; i < BLK * BLK; ++i) c[i] = s_cur[i];
+// One thread stages chunk c of tile w into the buffer at shared address
+// `buf`, counted on the mbarrier `bar`: plane A, the WIN_H x WIN_W
+// reference rows and columns that the tile's first block row reads for
+// the chunk's candidates; plane B, the same 8 rows lower from 4 columns
+// further left; C and D, the current rows of the two block rows (D from 4
+// columns further left). Cells outside a plane are filled with zeros.
+__device__ __forceinline__ void wide_stage(unsigned buf, unsigned bar, const WideTile& w, int c,
+                                           const CUtensorMap* ref_map, const CUtensorMap* cur_map,
+                                           int ref_off) {
+  const int cy = c / w.ncx;
+  const int x = w.x0 + w.dx_lo + (c - cy * w.ncx) * CHUNK_DX;
+  const int y = ref_off + w.y0 + w.dy_lo + cy * CHUNK_DY;
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(W_STAGE_BYTES)
+               : "memory");
+  box_copy(buf, ref_map, x, y, bar);
+  box_copy(buf + W_OFF_B, ref_map, x - 4, y + BLK, bar);
+  box_copy(buf + W_OFF_C, cur_map, w.x0, w.y0, bar);
+  box_copy(buf + W_OFF_D, cur_map, w.x0 - 4, w.y0 + BLK, bar);
+}
 
-  const int total = 2 * sr + 1;
-  const int n = total * total;
-  const int gby = row0 + by;  // global first row of this block
-  float best = __int_as_float(0x7f800000);  // +inf
-  int best_idx = INT_MAX;                   // no winner yet
-  for (int cand = threadIdx.x; cand < n; cand += blockDim.x) {
-    const int dy = cand / total - sr;
-    const int dx = cand % total - sr;
-    if (gby + dy < 0 || gby + dy + BLK > total_h || bx + dx < 0 || bx + dx + BLK > W) continue;
-    const float* win = ref + static_cast<long long>(ref_off + by + dy) * W + bx + dx;
-    float acc = 0.f;
+// One work unit of a lane: the ND candidates dx .. dx + ND - 1 of one dy,
+// `cur` its block's current row 0 and `win` its window's row 0 and column 0
+// for them. Each SSD is summed over rows r = 0..7 (outer) and columns
+// k = 0..7 (inner) from 0.f with __fsub_rn, __fmul_rn and __fadd_rn; the
+// candidates d_lo <= d <= d_hi are valid, and their first strict minimum
+// (packed index base + d) goes to the lane's (best, best_idx) by keep_min.
+template <int ND>
+__device__ __forceinline__ void wide_pass(const unsigned char* cur, const unsigned char* win,
+                                          int d_lo, int d_hi, int base, float& best,
+                                          int& best_idx) {
+  constexpr int NQ = (ND + BLK - 1 + 3) / 4;  // float4s through window column ND + 6
+  const float4* crow = reinterpret_cast<const float4*>(cur);
+  const float4* wrow = reinterpret_cast<const float4*>(win);
+  float acc[ND];
 #pragma unroll
-    for (int r = 0; r < BLK; ++r) {
+  for (int d = 0; d < ND; ++d) acc[d] = 0.f;
+
+#pragma unroll 2
+  for (int r = 0; r < BLK; ++r, crow += CUR_BOX_W / 4, wrow += WIN_W / 4) {
+    const float4 c0 = crow[0];
+    const float4 c1 = crow[1];
+    const float c[BLK] = {c0.x, c0.y, c0.z, c0.w, c1.x, c1.y, c1.z, c1.w};
+    float w[4 * NQ];
+#pragma unroll
+    for (int q = 0; q < NQ; ++q) {
+      const float4 v = wrow[q];
+      w[4 * q + 0] = v.x;
+      w[4 * q + 1] = v.y;
+      w[4 * q + 2] = v.z;
+      w[4 * q + 3] = v.w;
+    }
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
 #pragma unroll
       for (int k = 0; k < BLK; ++k) {
-        const float diff = __fsub_rn(c[r * BLK + k], __ldg(win + r * W + k));
-        acc = __fadd_rn(acc, __fmul_rn(diff, diff));
+        const float diff = __fsub_rn(c[k], w[d + k]);
+        acc[d] = __fadd_rn(acc[d], __fmul_rn(diff, diff));
       }
     }
-    if (acc < best) {  // strict: this thread's candidates come in scan order
-      best = acc;
-      best_idx = cand;
+  }
+  float ub = __int_as_float(0x7f800000);  // +inf
+  int ui = -1;
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    if (d >= d_lo && d <= d_hi && acc[d] < ub) {  // strict: the first in dx order
+      ub = acc[d];
+      ui = d;
     }
   }
+  if (ui >= 0) keep_min(best, best_idx, ub, base + ui);
+}
 
-  warp_min(best, best_idx);
+__global__ void __launch_bounds__(WIDE_THREADS, WIDE_MIN_CTAS)
+wide_kernel(const __grid_constant__ CUtensorMap ref_map, const __grid_constant__ CUtensorMap cur_map,
+            int* __restrict__ out, int H, int W, int ref_off, int row0, int total_h, int sr,
+            int tiles_x, int n_tiles) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  unsigned long long* bars = reinterpret_cast<unsigned long long*>(smem + 2 * W_STAGE_BYTES);
+  float* s_best = reinterpret_cast<float*>(bars + 2);
+  int* s_idx = reinterpret_cast<int*>(s_best + WIDE_THREADS);
+  const unsigned buf0 = smem_addr(smem);
+  const unsigned bar0 = smem_addr(bars);  // buffer b's: bar0 + 8 * b
+
   const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  if (lane == 0) {
-    s_best[warp] = best;
-    s_idx[warp] = best_idx;
+  const int lbx = (lane & 3) | ((lane >> 3) << 2);  // me_kernel's lane map
+  const int lby = (lane >> 2) & 1;
+  const int lane_at = 16 * (2 * lbx + lby);
+  const int win_at = (lby ? W_OFF_B : 0) + lane_at;
+  const int cur_at = (lby ? W_OFF_D : W_OFF_C) + lane_at;
+  const int total = 2 * sr + 1;
+  const int wb = W / BLK;
+  const int hb = H / BLK;
+  const float inf = __int_as_float(0x7f800000);
+
+  if (threadIdx.x == 0) {
+    for (int j = 0; j < 2; ++j) {
+      asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar0 + 8 * j), "r"(1)
+                   : "memory");
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncthreads();
-  if (warp == 0) {
-    const int warps = blockDim.x >> 5;
-    best = lane < warps ? s_best[lane] : __int_as_float(0x7f800000);
-    best_idx = lane < warps ? s_idx[lane] : INT_MAX;
-    warp_min(best, best_idx);
-    if (lane == 0) out[blockIdx.x] = best_idx == INT_MAX ? 0 : best_idx;
+
+  // this CTA's work: chunks 0.. of tiles blockIdx.x, + gridDim.x, ...
+  int t = blockIdx.x;
+  int c = 0;
+  WideTile tile = wide_tile(t, tiles_x, H, W, row0, total_h, sr);
+  if (threadIdx.x == 0) wide_stage(buf0, bar0, tile, 0, &ref_map, &cur_map, ref_off);
+  float best = inf;
+  int best_idx = INT_MAX;
+  for (int i = 0; t < n_tiles; ++i) {
+    const int b = i & 1;
+    const bool last = c + 1 == tile.n_chunks;  // the tile's last chunk
+    const int next_t = last ? t + gridDim.x : t;
+    const int next_c = last ? 0 : c + 1;
+    wait_parity(bar0 + 8 * b, (i >> 1) & 1);  // chunk c of tile t has landed in buffer b
+    __syncthreads();                          // and every thread is done with the other buffer
+    if (threadIdx.x == 0 && next_t < n_tiles) {  // prefetch while this chunk is searched
+      const WideTile nt = last ? wide_tile(next_t, tiles_x, H, W, row0, total_h, sr) : tile;
+      wide_stage(buf0 + (b ^ 1) * W_STAGE_BYTES, bar0 + 8 * (b ^ 1), nt, next_c, &ref_map,
+                 &cur_map, ref_off);
+    }
+
+    const int bxi = tile.x0 / BLK + lbx;
+    const int byi = tile.y0 / BLK + lby;
+    const bool in_frame = bxi < wb && byi < hb;
+    const int bx = bxi * BLK;
+    const int gby = row0 + byi * BLK;  // global first row of this lane's block
+    const int cy = c / tile.ncx;
+    const int cx = c - cy * tile.ncx;
+    const int dy0 = tile.dy_lo + cy * CHUNK_DY;
+    const int dx0 = tile.dx_lo + cx * CHUNK_DX;
+    const int rows = min(CHUNK_DY, tile.ny - cy * CHUNK_DY);
+    const int cols = min(CHUNK_DX, tile.nx - cx * CHUNK_DX);
+    const int passes = (cols + DXP - 1) / DXP;
+    const unsigned char* buf = smem + b * W_STAGE_BYTES;
+    for (int u = warp; u < rows * passes; u += WIDE_WARPS) {  // u = (dy row j, pass p)
+      const int j = u / passes;
+      const int p = u - j * passes;
+      const int dy = dy0 + j;
+      const int dx = dx0 + p * DXP;
+      const int nd = min(DXP, cols - p * DXP);  // the last pass stops at the chunk's last dx
+      const bool valid_y = in_frame && gby + dy >= 0 && gby + dy + BLK <= total_h;
+      const int d_lo = max(0, max(tile.dx_min, -bx) - dx);
+      const int d_hi = valid_y ? min(nd - 1, W - BLK - bx - dx) : -1;
+      if (!__any_sync(0xffffffffu, d_lo <= d_hi)) continue;  // no lane has a valid candidate
+      const unsigned char* cur = buf + cur_at;
+      const unsigned char* win = buf + win_at + j * (WIN_W * 4) + p * (DXP * 4);
+      const int base = (dy + sr) * total + dx + sr;
+      switch (nd) {
+        case 8: wide_pass<8>(cur, win, d_lo, d_hi, base, best, best_idx); break;
+        case 7: wide_pass<7>(cur, win, d_lo, d_hi, base, best, best_idx); break;
+        case 6: wide_pass<6>(cur, win, d_lo, d_hi, base, best, best_idx); break;
+        case 5: wide_pass<5>(cur, win, d_lo, d_hi, base, best, best_idx); break;
+        case 4: wide_pass<4>(cur, win, d_lo, d_hi, base, best, best_idx); break;
+        case 3: wide_pass<3>(cur, win, d_lo, d_hi, base, best, best_idx); break;
+        case 2: wide_pass<2>(cur, win, d_lo, d_hi, base, best, best_idx); break;
+        default: wide_pass<1>(cur, win, d_lo, d_hi, base, best, best_idx); break;
+      }
+    }
+
+    if (last) {  // combine the warps' minima of this tile
+      s_best[threadIdx.x] = best;
+      s_idx[threadIdx.x] = best_idx;
+      __syncthreads();
+      if (warp == 0) {
+        float m = s_best[lane];
+        int mi = s_idx[lane];
+#pragma unroll
+        for (int v = 1; v < WIDE_WARPS; ++v) keep_min(m, mi, s_best[v * 32 + lane], s_idx[v * 32 + lane]);
+        if (in_frame) out[static_cast<long long>(byi) * wb + bxi] = m < inf ? mi : 0;
+      }
+      best = inf;
+      best_idx = INT_MAX;
+      if (next_t < n_tiles) tile = wide_tile(next_t, tiles_x, H, W, row0, total_h, sr);
+    }
+    t = next_t;
+    c = next_c;
   }
 }
 
@@ -558,14 +754,38 @@ int launch(const float* ref, int ref_rows, int ref_off, const float* cur, int* o
   return static_cast<int>(cudaGetLastError());
 }
 
-int launch_wide(const float* ref, int ref_off, const float* cur, int* out, int H, int W, int sr,
-                int row0, int total_h, cudaStream_t stream) {
-  const long long blocks = static_cast<long long>(H / BLK) * (W / BLK);
-  if (blocks > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
-  const long long n = (2LL * sr + 1) * (2LL * sr + 1);
-  const int threads = n < WIDE_THREADS ? static_cast<int>((n + 31) / 32 * 32) : WIDE_THREADS;
-  wide_kernel<<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
-      ref, cur, out, W, W / BLK, ref_off, row0, total_h, sr);
+int launch_wide(const float* ref, int ref_rows, int ref_off, const float* cur, int* out, int H,
+                int W, int sr, int row0, int total_h, cudaStream_t stream) {
+  static int ctas_on_device[MAX_DEVICES];  // 0 until configured
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (dev < 0 || dev >= MAX_DEVICES) return static_cast<int>(cudaErrorInvalidDevice);
+  if (ctas_on_device[dev] == 0) {
+    int sms = 0, per_sm = 0;
+    err = cudaFuncSetAttribute(wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               WIDE_SMEM_BYTES);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, wide_kernel, WIDE_THREADS,
+                                                          WIDE_SMEM_BYTES);
+    }
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    if (per_sm < 1) return static_cast<int>(cudaErrorLaunchOutOfResources);
+    ctas_on_device[dev] = sms * per_sm;
+  }
+  const long long tiles_x = (W / BLK + TBX - 1) / TBX;
+  const long long n_tiles = tiles_x * ((H / BLK + TBY - 1) / TBY);
+  if (n_tiles > INT_MAX) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap ref_map, cur_map;
+  if (!plane_map(&ref_map, ref, ref_rows, W, WIN_W, WIN_H) ||
+      !plane_map(&cur_map, cur, H, W, CUR_BOX_W, BLK)) {
+    return static_cast<int>(cudaErrorNotSupported);
+  }
+  const int grid = n_tiles < ctas_on_device[dev] ? static_cast<int>(n_tiles) : ctas_on_device[dev];
+  wide_kernel<<<grid, WIDE_THREADS, WIDE_SMEM_BYTES, stream>>>(
+      ref_map, cur_map, out, H, W, ref_off, row0, total_h, sr, static_cast<int>(tiles_x),
+      static_cast<int>(n_tiles));
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -578,7 +798,7 @@ int search(const float* ref, int ref_rows, int ref_off, const float* cur, int* o
            int sr, int row0, int total_h, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (!sr_ok(sr)) return static_cast<int>(cudaErrorInvalidValue);
-  if (is_wide(sr)) return launch_wide(ref, ref_off, cur, out, H, W, sr, row0, total_h, s);
+  if (is_wide(sr)) return launch_wide(ref, ref_rows, ref_off, cur, out, H, W, sr, row0, total_h, s);
   static_assert(MAX_SR == 15, "instantiate launch<1..MAX_SR> below");
   switch (sr) {
     case 1: return launch<1>(ref, ref_rows, ref_off, cur, out, H, W, row0, total_h, s);

@@ -9,10 +9,11 @@ GPU machine, which has no JAX (tests/conftest.py imports it, hence
 It holds the kernels' two entry points (whole frames and halo-extended row
 bands) against their plain PyTorch versions on the card (``me_kernel`` at
 search ranges 1..15; ``wide_kernel`` at 0, 16, 17, 24, 32 and 255, on
-float, tie-heavy, +inf-SSD and no-winner inputs, each launch counted on
-its own kernel's counter; the codecs at sr 0 and 16 give the CPU port's
-bytes), the GOP codec's
-CUDA pack against its CPU pack, the sharded codec on the card against the
+float, tie-heavy, +inf-SSD and no-winner inputs, at 33, 64 and 100, which
+cross a pass remainder and a chunk edge, at ranges whose last pass is each
+of 1..8 dx wide, and on the last band of a 1080p frame at 32, each launch
+counted on its own kernel's counter; the codecs at sr 0 and 16 give the
+CPU port's bytes), the GOP codec's CUDA pack against its CPU pack, the sharded codec on the card against the
 fused pack, and the intra codec's CUDA container bytes against its CPU
 bytes; the adaptive video codec's bytes, launches and decodes on the card
 against its CPU bytes (at search ranges 4 and 8), and the sharded adaptive
@@ -147,7 +148,7 @@ def test_kernel_on_tie_heavy_frames(cuda_device, pattern, sr):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("sr", [4, 7, 8, 15])
+@pytest.mark.parametrize("sr", [4, 7, 8, 15, 32])
 def test_first_and_last_band_equal_kernel_order_plain(cuda_device, sr):
     """The bench fixture at 1088x1920 in 4 bands: row0 = 0, whose halo rows
     above lie outside the frame, and the last band, whose halo rows below do."""
@@ -251,6 +252,25 @@ def test_wide_kernel_on_ties_and_non_finite_ssds(cuda_device, pattern, sr):
                       f"{pattern} sr={sr}")
     if pattern in ("all-inf", "all-nan"):
         assert int(got.abs().sum()) == 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,W,sr", [(H, W, sr) for H, W in ((64, 384), (288, 352))
+                                    for sr in (33, 64, 100)]
+                         + [(16, 384, sr) for sr in (16, 17, 18, 19, 121, 122, 123, 124)])
+def test_wide_kernel_across_pass_remainders_and_chunk_edges(cuda_device, H, W, sr):
+    """The wide kernel searches a tile's candidates in chunks of 8 dy by 72
+    dx and a dy's dx in passes of 8, the last compiled for the 1..8 dx left:
+    sr 33 (70 dx from a 16-byte boundary: a remainder of 6), 64 (129: a
+    second dx chunk) and 100 (201: three dx chunks, candidates past the
+    frame on every side at 64x384); on a 16x384 frame, ranges whose last
+    pass is every width from 1 to 8 (2..5 where the frame's left edge clips
+    a tile's dx, at sr > 120)."""
+    rng = np.random.default_rng(9000 + sr + H)
+    ref = (rng.random((H, W)) * 255).astype(np.float32)
+    cur = (np.roll(ref, (-11, 29), (0, 1)) + rng.normal(0, 0.3, (H, W))).astype(np.float32)
+    _wide_check(torch.from_numpy(ref).to(cuda_device), torch.from_numpy(cur).to(cuda_device),
+                sr, _bands_of(H), f"float {H}x{W} sr={sr}")
 
 
 @pytest.mark.cuda

@@ -18,6 +18,7 @@ from ivclab_tpu.ops.motion import (
     motion_search as j_motion_search,
 )
 from ivclab_tpu.ops.motion_pallas import motion_search_pallas
+from ivclab_tpu.parallel.halo import motion_search_tile as j_motion_search_tile
 
 import ivclab_tpu_torch.ops.motion as tmotion
 from ivclab_tpu_torch.runtime import cuda_build
@@ -106,12 +107,18 @@ def _integer_pair(rng, H, W):
     return ref, cur
 
 
+# the wide kernel's ranges (sr 0 and sr >= 16) on the CPU tests' sizes
+WIDE_RANGES = [0, 16, 17, 32]
+
+
 @pytest.mark.parametrize("H,W,sr", [(64, 128, sr) for sr in range(1, 8)]
-                         + [(40, 56, 4), (40, 56, 7), (32, 96, 2)])
+                         + [(40, 56, 4), (40, 56, 7), (32, 96, 2)]
+                         + [(H, W, sr) for sr in WIDE_RANGES for H, W in ((40, 56), (64, 128))])
 def test_kernel_order_plain_matches_reference_and_jax(H, W, sr):
     """Integer-valued and flat frames make every SSD exact, so the
     kernel-order sum equals the plain reference and JAX's scan, ties
-    included."""
+    included; at the wide kernel's ranges too (at sr 32 most of a 40x56
+    frame's candidates lie outside it)."""
     rng = np.random.default_rng(H * W + sr)
     cases = {"integer": _integer_pair(rng, H, W),
              "flat": (np.full((H, W), 100.0, np.float32), np.full((H, W), 120.0, np.float32))}
@@ -123,22 +130,59 @@ def test_kernel_order_plain_matches_reference_and_jax(H, W, sr):
         assert_exact(got, j_motion_search(ref, cur, sr), f"{name} vs JAX scan")
 
 
-@pytest.mark.parametrize("sr", [1, 4, 7])
+@pytest.mark.parametrize("sr", [1, 4, 7, *WIDE_RANGES])
 def test_kernel_order_band_matches_band_reference(sr):
-    """Every band of a 64x128 frame in 4 bands, halo rows cut from the frame."""
-    H, W, band_h = 64, 128, 16
-    ref, cur = _integer_pair(np.random.default_rng(sr), H, W)
-    padded = np.pad(ref, ((sr, sr), (0, 0)))
-    bands = []
-    for i in range(H // band_h):
-        ext = to_torch(padded[i * band_h:(i + 1) * band_h + 2 * sr])
-        band = to_torch(cur[i * band_h:(i + 1) * band_h])
-        got = tmotion.motion_search_tile_kernel_order(ext, band, i * band_h, H, sr)
-        assert_exact(got, tmotion.motion_search_tile_reference(ext, band, i * band_h, H, sr),
-                     f"band {i}")
-        bands.append(got)
-    assert_exact(torch.cat(bands), tmotion.motion_search_kernel_order(
-        to_torch(ref), to_torch(cur), sr), "bands vs whole frame")
+    """Every band of a 64x128 frame in 4 bands, halo rows cut from the frame;
+    at the wide kernel's ranges also every band of a 40x56 frame in 5, on
+    integer and flat frames, each band against JAX's band search too."""
+    sizes = [(64, 128, 16)] + ([(40, 56, 8)] if sr in WIDE_RANGES else [])
+    for H, W, band_h in sizes:
+        cases = {"integer": _integer_pair(np.random.default_rng(sr), H, W)}
+        if sr in WIDE_RANGES:
+            cases["flat"] = (np.full((H, W), 100.0, np.float32), np.full((H, W), 120.0, np.float32))
+        for name, (ref, cur) in cases.items():
+            padded = np.pad(ref, ((sr, sr), (0, 0)))
+            bands = []
+            for i in range(H // band_h):
+                ext_np = padded[i * band_h:(i + 1) * band_h + 2 * sr]
+                cur_np = cur[i * band_h:(i + 1) * band_h]
+                ext, band = to_torch(ext_np), to_torch(cur_np)
+                got = tmotion.motion_search_tile_kernel_order(ext, band, i * band_h, H, sr)
+                what = f"{H}x{W} {name} band {i}"
+                assert_exact(got, tmotion.motion_search_tile_reference(
+                    ext, band, i * band_h, H, sr), what)
+                if sr in WIDE_RANGES:
+                    assert_exact(got, j_motion_search_tile(ext_np, cur_np, i * band_h, H, sr),
+                                 f"{what} vs JAX")
+                bands.append(got)
+            assert_exact(torch.cat(bands), tmotion.motion_search_kernel_order(
+                to_torch(ref), to_torch(cur), sr), f"{H}x{W} {name} bands vs whole frame")
+
+
+@pytest.mark.parametrize("H,W", [(40, 56), (64, 128)])
+def test_search_range_0_gives_index_0_on_any_input(H, W):
+    """At sr 0 the one candidate is (0, 0), index 0, whatever its SSD: on
+    float frames, on frames with NaN and with +-inf pixels, and on bands,
+    in both plain versions and JAX's scan."""
+    rng = np.random.default_rng(H + W)
+    ref = (rng.random((H, W)) * 255).astype(np.float32)
+    nan_cur = ref.copy()
+    nan_cur[rng.random((H, W)) < 0.3] = np.nan
+    inf_ref = np.where(rng.random((H, W)) < 0.3, np.inf, ref).astype(np.float32)
+    cases = {"float": (ref, np.roll(ref, (1, 2), (0, 1))), "nan": (ref, nan_cur),
+             "inf": (inf_ref, -inf_ref), "all-nan": (np.full_like(ref, np.nan), ref)}
+    zeros = np.zeros((H // 8, W // 8), np.int32)
+    for name, (r, c) in cases.items():
+        R, C = to_torch(r), to_torch(c)
+        for fn in (tmotion.motion_search_reference, tmotion.motion_search_kernel_order):
+            assert_exact(fn(R, C, 0), zeros, f"{name} {fn.__name__}")
+        assert_exact(j_motion_search(r, c, 0), zeros, f"{name} JAX")
+        for i in range(H // 8):
+            rows = slice(i * 8, i * 8 + 8)
+            for fn in (tmotion.motion_search_tile_reference,
+                       tmotion.motion_search_tile_kernel_order):
+                assert_exact(fn(R[rows], C[rows], i * 8, H, 0), zeros[i:i + 1],
+                             f"{name} band {i} {fn.__name__}")
 
 
 @pytest.mark.parametrize("sr", [1, 4, 7])
