@@ -106,7 +106,17 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    kernel's band entry point); ``decode-video`` to ``.npy``
    (within 1 level of the CPU's) and ``info`` of the sr=16 stream;
    ``rd-sweep --kind video --frames 3`` (every point equal to the CPU's);
-   ``tools/dryrun.py::dryrun_multichip(8, "cuda")`` on a 2x4 mesh.
+   ``tools/dryrun.py::dryrun_multichip(8, "cuda")`` on a 2x4 mesh;
+13. the lab's chapter examples and the scaling tool on the card, in
+   process: the twins ``ivclab_tpu_torch.examples.ch1_basics``, ``ch2_entropy``,
+   ``ch3_intra`` and ``ch4_video --quick --frames 3`` (their lines and wall
+   seconds printed; ch3 and ch4 compared line by line with the same run on
+   ``--device cpu`` by ``examples/lines.py``'s rules; ch4's sweeps launch
+   the whole-frame kernel once a P-frame, 18 in all, and ch1-ch3 launch
+   none), and ``tools/scaling.py --device cuda --counts 1,2,4`` (both
+   axes' points printed, the tile axis's pack buckets checked at every
+   count, the frame and band kernel launches equal to what its steps
+   imply; the report written to ``chiprun_out/SCALING_torch.json``).
 
 The line before the last is a JSON list of the kernels with their launch
 counts over every main path above, times and bounds (the wide kernel's
@@ -1029,6 +1039,94 @@ def cli_phase(card: str) -> tuple[int, int, int, int]:
     return tuple(totals)
 
 
+def run_example(module, argv) -> tuple[list[str], float]:
+    """``module.main(argv)`` in this process: the lines it printed and its
+    wall seconds, the device synchronised at both ends."""
+    import contextlib
+    import io
+
+    import torch
+
+    buf = io.StringIO()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(list(argv))
+    torch.cuda.synchronize()
+    check(rc == 0, f"{module.__name__} {argv} returned {rc}")
+    return buf.getvalue().splitlines(), time.perf_counter() - t0
+
+
+def examples_phase(card: str) -> tuple[int, int]:
+    """Phase 13: the example twins and the scaling tool on the card (see
+    the module doc). Returns the (whole-frame, band) ``me_kernel`` launches
+    of its main-path runs: ch4 and the scaling sweep."""
+    from pathlib import Path
+
+    import torch
+
+    from ivclab_tpu_torch.examples import ch1_basics, ch2_entropy, ch3_intra, ch4_video
+    from ivclab_tpu_torch.examples.lines import mismatches
+    from ivclab_tpu_torch.tools import scaling
+
+    t_phase = time.perf_counter()
+    whole = 0
+    for module, argv, against_cpu in ((ch1_basics, [], False), (ch2_entropy, [], False),
+                                      (ch3_intra, [], True),
+                                      (ch4_video, ["--quick", "--frames", "3"], True)):
+        name = module.__name__.rsplit(".", 1)[1]
+        reset_launch_counts()
+        lines, secs = run_example(module, ["--device", "cuda", *argv])
+        counts = launch_counts()
+        print(f"[examples] {name} {' '.join(argv)} on the card: {len(lines)} lines in "
+              f"{secs:.3f} s, launches {counts} ({card})")
+        for line in lines:
+            print(f"[examples] {name} | {line}")
+        # ch4: 3 policies x 3 q-scales x 2 P-frames, one whole-frame search each
+        want = (18, 0, 0, 0) if module is ch4_video else (0, 0, 0, 0)
+        check(counts == want, f"{name}: launches {counts}, not {want}")
+        whole += counts[0]
+        if against_cpu:
+            ref, cpu_secs = run_example(module, ["--device", "cpu", *argv])
+            problems = mismatches(name, ref, lines)
+            print(f"[examples] {name} card vs --device cpu ({cpu_secs:.3f} s on the host): "
+                  f"{len(problems)} lines break the rules")
+            for line in problems:
+                print(f"[examples]   {line}")
+            check(not problems, f"{name}: the card's lines differ from --device cpu")
+
+    counts_n = (1, 2, 4)
+    out = Path(__file__).resolve().parent / "chiprun_out" / "SCALING_torch.json"
+    reset_launch_counts()
+    t0 = time.perf_counter()
+    rc = scaling.main(["--device", "cuda", "--counts", ",".join(map(str, counts_n)),
+                       "--out", str(out)])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    check(rc == 0, f"tools/scaling.py returned {rc}")
+    rep = json.loads(out.read_text())
+    # every point's training searches one frame pair, and the gop axis's bucket
+    # pick encodes one GOP (GOP_LEN - 1 searches); each step (a warm-up, then
+    # ITERS x REPEATS) searches every P-frame of every shard's band
+    steps = 1 + scaling.ITERS * scaling.REPEATS
+    want = (len(counts_n) * (scaling.GOP_LEN + 1),
+            steps * sum(counts_n) * (scaling.GOP_LEN - 1 + scaling.TILE_GOP_LEN - 1), 0, 0)
+    print(f"[scaling] tools/scaling.py --device cuda --counts 1,2,4 in {secs:.3f} s, launches "
+          f"{counts} (want {want}) ({card})")
+    for axis in ("gop_axis", "tile_axis"):
+        print(f"[scaling] {axis}: {rep[axis]['config']}")
+        for r in rep[axis]["results"]:
+            print(f"[scaling] {axis} {r['n_devices']} shard(s) in process: {r['mpix_per_s']:.3f} "
+                  f"Mpix/s, {r['fps']:.3f} fps, efficiency {r['efficiency']}, best of "
+                  f"{r['repeats_mpix_per_s']} ({card})")
+            check(r["mpix_per_s"] > 0 and not r.get("collective_census"),
+                  f"scaling {axis} n={r['n_devices']}: {r}")
+    check(counts == want, f"tools/scaling.py launches {counts}, not {want}")
+    print(f"[examples] phase 13 took {time.perf_counter() - t_phase:.1f} s ({card})")
+    return whole, counts[1]
+
+
 def main() -> None:
     import numpy as np
     import torch
@@ -1489,6 +1587,11 @@ def main() -> None:
     tile_launches += cli_band
     check(wide_launches > 0, "the CLI runs launched no wide_kernel on a frame")
     check(wide_tile_launches > 0, "the CLI runs launched no wide_kernel on a band")
+
+    # ------------------ 13. the chapter examples and the scaling tool
+    ex_whole, ex_band = examples_phase(card)
+    launches += ex_whole
+    tile_launches += ex_band
 
     print(json.dumps({"kernels": [{
         "name": "motion_search",

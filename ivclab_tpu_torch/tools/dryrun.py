@@ -1,6 +1,10 @@
-"""Multi-shard dry run of the full sharded video codec.
+"""The package's entry points: the fused intra forward step and the
+multi-shard dry run of the full sharded video codec.
 
-Port of ``dryrun_multichip`` in the repository's ``__graft_entry__.py``:
+Port of ``entry`` and ``dryrun_multichip`` in the repository's
+``__graft_entry__.py``. :func:`entry` returns the fused intra forward step
+(DCT, quantisation and zero-run coding, then the inverse) with its example
+input.
 
     python3 -m ivclab_tpu_torch.tools.dryrun N [--device cuda|cpu]
 
@@ -25,6 +29,32 @@ import sys
 
 import numpy as np
 import torch
+
+
+def entry(device: str | torch.device = "cuda"):
+    """``(fn, example_args)``: the fused intra forward step on ``device``.
+
+    ``fn`` maps a ``[64, 64, 3]`` float32 YCbCr tensor to ``(reconstruction,
+    symbol count)``: ``forward_symbolize`` then ``inverse_reconstruct`` with
+    ``quant_table_zigzag(0.5, 3)`` and end-of-block 4000. ``example_args``
+    holds the input ``np.random.default_rng(0)`` makes, on ``device``.
+    """
+    from ivclab_tpu_torch.ops.quant import quant_table_zigzag
+    from ivclab_tpu_torch.ops.transform import forward_symbolize, inverse_reconstruct
+
+    dev = torch.device(device)
+    qt = quant_table_zigzag(0.5, 3)
+    inv_qt = torch.from_numpy((1.0 / qt).astype(np.float32)).to(dev)
+    qt_dev = torch.from_numpy(qt).to(dev)
+
+    def forward(img_ycbcr: torch.Tensor):
+        _, valid_len, qsym = forward_symbolize(img_ycbcr, inv_qt, 4000)
+        recon = inverse_reconstruct(qsym, qt_dev, (64, 64, 3))
+        return recon, valid_len.sum()
+
+    rng = np.random.default_rng(0)
+    example = np.asarray(rng.random((64, 64, 3)) * 255, dtype=np.float32)
+    return forward, (torch.from_numpy(example).to(dev),)
 
 
 def dryrun_multichip(n_devices: int, device: str | torch.device = "cuda",

@@ -19,8 +19,11 @@ bytes; the adaptive video codec's bytes, launches and decodes on the card
 against its CPU bytes (at search ranges 4 and 8), and the sharded adaptive
 encoder against the single-device one; the ch1/ch2 library's filters,
 wavefront and ``PredictiveCodec`` against the CPU port (equal bits; the
-FFT within its tolerance); and it checks that the C++ entropy engine builds
-there. The CPU parity with the JAX package is in the other
+FFT within its tolerance); the ch3 chapter example's lines on the card
+against its ``--device cpu`` lines (``ivclab_tpu_torch/examples/lines.py``'s
+rules), ``tools/scaling.py``'s points on an in-process 2-shard mesh on the
+card with their band launches; and it checks that the C++ entropy engine
+builds there. The CPU parity with the JAX package is in the other
 tests/test_torch_*.py files.
 """
 
@@ -28,6 +31,7 @@ import numpy as np
 import pytest
 import torch
 
+from example_parity import capture
 from torch_parity import (  # noqa: F401
     assert_exact,
     cuda_device,
@@ -49,7 +53,10 @@ from ivclab_tpu_torch.models import intracodec as tintra
 from ivclab_tpu_torch.models.predictive import COEFFS_CBCR, COEFFS_Y
 from ivclab_tpu_torch.ops.predictive import predict_from_neighbors, reconstruct_from_residual
 from ivclab_tpu_torch.ops.resample import decimate, decimate_iir, lowpass_filter
+from ivclab_tpu_torch.examples import ch3_intra
+from ivclab_tpu_torch.examples.lines import mismatches
 from ivclab_tpu_torch.runtime import native
+from ivclab_tpu_torch.tools import scaling
 from ivclab_tpu_torch.utils import fixtures
 
 
@@ -572,3 +579,26 @@ def test_predictive_codec_bits_equal_on_cuda_and_cpu(cuda_device, subsample, q):
     y, c = three_pixels_predictor(img, subsample, device=cuda_device)
     yc, cc = three_pixels_predictor(img, subsample, device="cpu")
     assert torch.equal(y.cpu(), yc) and torch.equal(c.cpu(), cc)
+
+
+@pytest.mark.cuda
+def test_ch3_example_on_the_card_prints_the_cpu_lines(cuda_device):
+    card = capture(lambda: ch3_intra.main(["--device", "cuda"]))
+    cpu = capture(lambda: ch3_intra.main(["--device", "cpu"]))
+    problems = mismatches("ch3_intra", cpu, card)
+    assert not problems, "\n".join(problems)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("axis", ["gop", "tile"])
+def test_scaling_point_in_process_on_the_card(cuda_device, axis):
+    """Two shards on the card: the tile point's buckets hold (it raises
+    otherwise), and every P-frame of every shard's band is one band launch
+    in the warm-up step and in the one timed step."""
+    mesh = tpar.make_mesh(*scaling.mesh_shape(axis, 2), device=cuda_device)
+    before = tmotion.TILE_LAUNCHES
+    r = scaling.run_point(axis, 2, mesh, iters=1, repeats=1)
+    torch.cuda.synchronize()
+    p_frames = (scaling.GOP_LEN if axis == "gop" else scaling.TILE_GOP_LEN) - 1
+    assert tmotion.TILE_LAUNCHES - before == 2 * 2 * p_frames
+    assert r["n_devices"] == 2 and r["mpix_per_s"] > 0

@@ -7,16 +7,21 @@
 ``checked``, ``debug_mode``), ``runtime/elastic.py`` (the heartbeat monitor
 twin, ``DistributedHeartbeat`` over an in-process store and its refusal
 without a process group, ``reencode_missing_gops``' bytes against JAX's)
-and ``tools/dryrun.py`` on in-process CPU meshes of 1, 2, 4 and 8 shards.
-Sizes are the JAX tests': foreman cut to 96x128 for the recovery, the
-dry run's 64-pixel-wide frames. Bytes must be equal; there is no float
-comparison.
+and ``tools/dryrun.py``: ``dryrun_multichip`` on in-process CPU meshes of
+1, 2, 4 and 8 shards, and ``entry`` against ``__graft_entry__.entry``
+under ``jax.jit``. Sizes are the JAX tests': foreman cut to 96x128 for the
+recovery, the dry run's 64-pixel-wide frames, the entry's 64x64x3 input.
+Bytes and symbols must be equal; the one float comparison (the entry's
+reconstruction) states its bound.
 """
 
 from __future__ import annotations
 
+import importlib.util
 import json
+from pathlib import Path
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -44,7 +49,7 @@ from ivclab_tpu_torch.runtime.elastic import (
     reencode_missing_gops,
 )
 from ivclab_tpu_torch.runtime.trace import StageTimer, device_trace
-from ivclab_tpu_torch.tools.dryrun import dryrun_multichip
+from ivclab_tpu_torch.tools.dryrun import dryrun_multichip, entry
 
 
 def test_stage_timer():
@@ -248,3 +253,40 @@ def test_dryrun_multichip_on_cpu_meshes(n):
     """``dryrun_multichip(n)`` on an in-process CPU mesh (JAX's default
     factorisation: 1x1, 1x2, 1x4, 2x4); it raises on any failed check."""
     dryrun_multichip(n, device="cpu")
+
+
+def test_entry_matches_the_graft_entry():
+    """The fused intra forward step against ``__graft_entry__.entry()``
+    jitted: the same input, symbol count and quantised symbols exactly, the
+    reconstruction within 1e-4 (one float32 [N,64]x[64,64] product each
+    way; 0.0 measured)."""
+    from ivclab_tpu.ops.transform import forward_symbolize as jax_forward_symbolize
+
+    from ivclab_tpu_torch.ops.transform import forward_symbolize
+
+    path = Path(__file__).resolve().parents[1] / "__graft_entry__.py"
+    spec = importlib.util.spec_from_file_location("graft_entry", path)
+    graft = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(graft)
+    jfn, jargs = graft.entry()
+    jrec, jcount = jax.jit(jfn)(*jargs)
+    fn, args = entry(device="cpu")
+    assert np.array_equal(args[0].numpy(), jargs[0])
+    rec, count = fn(*args)
+    assert int(count) == int(jcount) > 0
+    assert float(np.abs(rec.numpy() - np.asarray(jrec)).max()) <= 1e-4
+
+    from ivclab_tpu_torch.ops.quant import quant_table_zigzag
+
+    inv = (1.0 / quant_table_zigzag(0.5, 3)).astype(np.float32)
+    _, jvalid, jq = jax_forward_symbolize(jnp.asarray(jargs[0]), jnp.asarray(inv), 4000)
+    _, valid, q = forward_symbolize(args[0], torch.from_numpy(inv), 4000)
+    assert np.array_equal(q.numpy(), np.asarray(jq))
+    assert np.array_equal(valid.numpy(), np.asarray(jvalid))
+
+
+def test_entry_defaults_to_the_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present")
+    with pytest.raises((AssertionError, RuntimeError)):
+        entry()
