@@ -117,6 +117,17 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    axes' points printed, the tile axis's pack buckets checked at every
    count, the frame and band kernel launches equal to what its steps
    imply; the report written to ``chiprun_out/SCALING_torch.json``).
+14. the repository's benchmark on the card, in process: the twin of
+   ``bench.py``, ``ivclab_tpu_torch/tools/bench.py``, at its defaults
+   (1088x1920, T=8, a 32-GOP stream at in-flight depth 2, q=1.0, the
+   adaptive half on): its JSON line printed beside the card's name and
+   power limit; every ``ok`` flag, the 1e-2 decoder gap and PSNR-Y above
+   28 dB (checked inside it), PSNR-Y within 0.01 dB of phase 4's and the
+   payload bits equal to phase 4's, the adaptive container bytes equal to
+   phase 9(a)'s, and exactly the ``me_kernel`` launches its steps imply
+   (365); then the host syncs of one warm round trip, each at its
+   ``file:line`` (``torch.cuda.set_sync_debug_mode("warn")``), and a
+   profile of 3 sync-free round trips (device ms, launches, busy share).
 
 The line before the last is a JSON list of the kernels with their launch
 counts over every main path above, times and bounds (the wide kernel's
@@ -243,6 +254,9 @@ def profile_line(label: str, fn) -> None:
     from ivclab_tpu_torch.utils.timing import device_kernels
 
     kernels = device_kernels(fn)
+    if not kernels:
+        print(f"[profile] {label}: not measured (the profiler's trace holds no device event)")
+        return
     me = [us for name, us in kernels if "me_kernel" in name]
     total = sum(us for _, us in kernels)
     check(bool(me), f"{label}: the profile holds no motion-search kernel")
@@ -540,9 +554,10 @@ def adaptive_divergence(y3, codec_g, codec_c) -> bool:
 ADAPTIVE_REPS = 5  # timed runs per adaptive entry point, after one warm-up
 
 
-def adaptive_phase(dev, card: str, y, rgb) -> int:
+def adaptive_phase(dev, card: str, y, rgb) -> tuple[int, int]:
     """Phase 9: ``VideoCodec`` at full width on CUDA (see the module doc).
-    Returns the whole-frame kernel launches of its main-path runs."""
+    Returns the whole-frame kernel launches of its main-path runs and the
+    per-frame policy's container bytes of (a)."""
     import numpy as np
     import torch
 
@@ -677,6 +692,10 @@ def adaptive_phase(dev, card: str, y, rgb) -> int:
              stages["decode_from_container(return_device=True)"],
              med["decode_from_container(return_device=True)"])):
         kernels = device_kernels(fn)
+        if not kernels:
+            print(f"[profile] adaptive {label}: not measured (the profiler's trace holds no "
+                  f"device event)")
+            continue
         total = sum(us for _, us in kernels)
         by_name: dict = {}
         for name, us in kernels:
@@ -711,7 +730,7 @@ def adaptive_phase(dev, card: str, y, rgb) -> int:
     if blob8 != blob8_cpu:
         check(adaptive_divergence(y3, c8, c8_cpu), "CUDA and CPU bytes at search range 8 differ "
                                                    "by more than near-ties")
-    return launches
+    return launches, len(blobs["per-frame"])
 
 
 def sharded_adaptive_phase(dev, card: str, y6) -> int:
@@ -790,6 +809,8 @@ def profile_summary(fn, wall_ms: float) -> str:
     from ivclab_tpu_torch.utils.timing import device_kernels
 
     kernels = device_kernels(fn)
+    if not kernels:
+        return "not measured (the profiler's trace holds no device event)"
     total = sum(us for _, us in kernels) / 1e3
     return (f"{len(kernels)} kernel launches, {total:.3f} device ms, busy share "
             f"{total / wall_ms:.3f} of the median wall time")
@@ -1125,6 +1146,58 @@ def examples_phase(card: str) -> tuple[int, int]:
     check(counts == want, f"tools/scaling.py launches {counts}, not {want}")
     print(f"[examples] phase 13 took {time.perf_counter() - t_phase:.1f} s ({card})")
     return whole, counts[1]
+
+
+def bench_phase(card: str, psnr4: float, bits4, adaptive_bytes: int) -> int:
+    """Phase 14: ``tools/bench.py`` at its defaults on the card (see the
+    module doc). Returns its ``me_kernel`` launches."""
+    import torch
+
+    from ivclab_tpu_torch.tools import bench
+    from ivclab_tpu_torch.utils.timing import host_syncs
+
+    t_phase = time.perf_counter()
+    T, iters, repeats, gops = 8, 3, 3, 32  # bench.run's defaults
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    run = bench.measure(device="cuda")
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    print(json.dumps(run.line))
+    print(f"[bench] the line above: tools/bench.py --device cuda on {card}")
+    # train searches one frame pair; every encode_gop and every adaptive
+    # encode_to_container searches each P-frame once: the bucket warm, the
+    # checked round trip, the untimed loop, the stream, the repeats, the
+    # encode stage loop, then the adaptive warm and max(2, repeats - 1) timed
+    gop_encodes = 1 + 1 + iters + gops + repeats * iters + iters
+    want = (1 + (T - 1) * (gop_encodes + 1 + max(2, repeats - 1)), 0, 0, 0)
+    d = run.line["detail"]
+    payload_bits = int(run.frame_bits.sum())
+    print(f"[bench] PSNR-Y {run.psnr_y:.4f} dB (phase 4: {psnr4:.4f}), payload bits "
+          f"{payload_bits} (phase 4: {int(bits4.sum())}), adaptive container "
+          f"{d['adaptive_1080p']['container_bytes']} bytes (phase 9a: {adaptive_bytes}), "
+          f"launches {counts} (want {want})")
+    check(abs(run.psnr_y - psnr4) <= 0.01, "the bench's PSNR-Y differs from phase 4's")
+    check(payload_bits == int(bits4.sum()), "the bench's payload bits differ from phase 4's")
+    check(d["adaptive_1080p"]["container_bytes"] == adaptive_bytes,
+          "the bench's adaptive container differs from phase 9a's")
+    check(counts == want, f"tools/bench.py launches {counts}, not {want}")
+
+    syncs = host_syncs(run.roundtrip)
+    print(f"[bench] host syncs in one warm round trip: {sum(n for _, n in syncs)} at "
+          f"{len(syncs)} places")
+    for where, n in syncs:
+        print(f"[bench]   {where} x{n}")
+
+    def loop():
+        for _ in range(iters):
+            run.roundtrip()
+
+    wall = median_ms(loop, 3)
+    print(f"[bench] {iters} sync-free round trips: {wall:.3f} ms (median of 3, synchronised); "
+          f"profile: {profile_summary(loop, wall)} ({card})")
+    print(f"[bench] phase 14 took {time.perf_counter() - t_phase:.1f} s ({card})")
+    return counts[0]
 
 
 def main() -> None:
@@ -1573,7 +1646,8 @@ def main() -> None:
                  lambda: step(parallel.shard_frames(y6_dev, mesh)))
 
     # ------------------------- 9. the adaptive video codec at full width
-    launches += adaptive_phase(dev, card, y, rgb)
+    adaptive_launches, adaptive_bytes = adaptive_phase(dev, card, y, rgb)
+    launches += adaptive_launches
 
     # ------------------------ 10. the sharded adaptive encoder at full width
     tile_launches += sharded_adaptive_phase(dev, card, y6)
@@ -1592,6 +1666,9 @@ def main() -> None:
     ex_whole, ex_band = examples_phase(card)
     launches += ex_whole
     tile_launches += ex_band
+
+    # ----------------------------------- 14. the benchmark twin on the card
+    launches += bench_phase(card, psnr_y, bits, adaptive_bytes)
 
     print(json.dumps({"kernels": [{
         "name": "motion_search",

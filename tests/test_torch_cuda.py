@@ -22,7 +22,8 @@ wavefront and ``PredictiveCodec`` against the CPU port (equal bits; the
 FFT within its tolerance); the ch3 chapter example's lines on the card
 against its ``--device cpu`` lines (``ivclab_tpu_torch/examples/lines.py``'s
 rules), ``tools/scaling.py``'s points on an in-process 2-shard mesh on the
-card with their band launches; and it checks that the C++ entropy engine
+card with their band launches, ``tools/bench.py`` at 128x256 against its
+``--device cpu`` line with its launches and host syncs; and it checks that the C++ entropy engine
 builds there. The CPU parity with the JAX package is in the other
 tests/test_torch_*.py files.
 """
@@ -56,8 +57,9 @@ from ivclab_tpu_torch.ops.resample import decimate, decimate_iir, lowpass_filter
 from ivclab_tpu_torch.examples import ch3_intra
 from ivclab_tpu_torch.examples.lines import mismatches
 from ivclab_tpu_torch.runtime import native
-from ivclab_tpu_torch.tools import scaling
+from ivclab_tpu_torch.tools import bench, scaling
 from ivclab_tpu_torch.utils import fixtures
+from ivclab_tpu_torch.utils.timing import event_device_us, host_syncs
 
 
 @pytest.mark.cuda
@@ -602,3 +604,61 @@ def test_scaling_point_in_process_on_the_card(cuda_device, axis):
     p_frames = (scaling.GOP_LEN if axis == "gop" else scaling.TILE_GOP_LEN) - 1
     assert tmotion.TILE_LAUNCHES - before == 2 * 2 * p_frames
     assert r["n_devices"] == 2 and r["mpix_per_s"] > 0
+
+
+@pytest.mark.cuda
+def test_bench_on_the_card_gives_the_cpu_line(cuda_device):
+    """``tools/bench.py`` at 128x256, 4 frames, 3 GOPs: the card's mean bpp
+    and adaptive container bytes are the ``--device cpu`` run's, or every
+    motion index that differs (at the first P-frame where one does) is a
+    near-tie; its ``me_kernel`` launches are what its steps imply; and
+    ``host_syncs`` places each host sync of a warm round trip in the package."""
+    knobs = dict(H=128, W=256, T=4, iters=1, repeats=1, sustained=3)
+    before = tmotion.LAUNCHES
+    g = bench.measure(device=cuda_device, **knobs)
+    torch.cuda.synchronize()
+    launches = tmotion.LAUNCHES - before
+    c = bench.measure(device="cpu", **knobs)
+    # train searches once; 8 GOP encodes (bucket warm, checked round trip, 1
+    # untimed, 3 streamed, 1 repeat, 1 stage loop) and 3 adaptive container
+    # encodes (a warm-up, 2 timed) search each of 3 P-frames once
+    assert launches == 1 + 3 * (8 + 3)
+    gd, cd = g.line["detail"], c.line["detail"]
+    assert gd["backend"] == "cuda" and gd["sustained_gops"] == 3 and gd["psnr_y_db"] > 28
+    if (gd["mean_bpp"], gd["adaptive_1080p"]["container_bytes"]) != (
+            cd["mean_bpp"], cd["adaptive_1080p"]["container_bytes"]):
+        y = luma(fixtures.video("bench", 4, (128, 256)))
+        out = {}
+        for dev in (cuda_device, "cpu"):
+            _, mvs, _, rec = FusedVideoCodec(1.0, device=dev).train(y[:2]).encode_gop(y)
+            out[str(dev)] = (mvs.cpu().numpy(), rec.cpu().numpy().astype(np.float64))
+        (a, _), (b, rec_c) = out[str(cuda_device)], out["cpu"]
+        differ = [t for t in range(1, 4) if (a[t] != b[t]).any()]
+        assert differ, "the lines differ with equal motion fields"
+        t = differ[0]
+        cur = y[t].astype(np.float64)
+        for by, bx in np.argwhere(a[t] != b[t]):
+            blk = cur[by * 8:by * 8 + 8, bx * 8:bx * 8 + 8]
+            ssd = []
+            for idx in (a[t][by, bx], b[t][by, bx]):
+                y0, x0 = by * 8 + idx // 9 - 4, bx * 8 + idx % 9 - 4
+                ssd.append(((blk - rec_c[t - 1][y0:y0 + 8, x0:x0 + 8]) ** 2).sum())
+            print(f"frame {t} block ({by}, {bx}): card {a[t][by, bx]} ssd {ssd[0]!r}, "
+                  f"CPU {b[t][by, bx]} ssd {ssd[1]!r}")
+            assert abs(ssd[0] - ssd[1]) <= 1e-5 * max(ssd[0], ssd[1], 1.0)
+    syncs = host_syncs(g.roundtrip)
+    assert syncs and all(where.startswith("ivclab_tpu_torch/") for where, _ in syncs), syncs
+
+
+@pytest.mark.cuda
+def test_event_timing_brackets_only_the_kernel(cuda_device):
+    """``event_device_us`` (the fallback when a profiler trace loses its
+    device events) times the kernel, not the host's enqueue: a 1080p sr=4
+    search (≈ 24 us in the profiler) reads above 10 us and well below the
+    1 ms spin that holds the events back."""
+    y = luma(fixtures.video("bench", 2, (1088, 1920)))
+    R = torch.from_numpy(y[0]).to(cuda_device)
+    C = torch.from_numpy(y[1]).to(cuda_device)
+    tmotion.motion_search_cuda(R, C, 4)
+    times = event_device_us(lambda: tmotion.motion_search_cuda(R, C, 4), 5)
+    assert len(times) == 5 and all(10.0 < us < 500.0 for us in times), times
