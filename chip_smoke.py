@@ -8,8 +8,9 @@ PyTorch built for CUDA and the CUDA toolkit:
 It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
 
 1. device and build: requires CUDA, prints the card's name and power
-   limit, builds ``ivclab_tpu_torch/csrc/motion_search.cu`` with nvcc and
-   checks that TF32 is off;
+   limit, builds ``ivclab_tpu_torch/csrc/motion_search.cu`` and
+   ``ivclab_tpu_torch/csrc/decode_walk.cu`` with nvcc (one process each,
+   started together) and checks that TF32 is off;
 2. kernel vs plain: the motion-search kernel against its plain PyTorch
    version on the card: exact on integer-valued and flat frames, and on
    float fixture frames every mismatch must be a verified near-tie; bit
@@ -27,11 +28,14 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    plain version at sr 16;
 3. cross-device integer exactness: one set of symbols and motion fields
    packed and serialized on CUDA and on the CPU gives identical bytes, and
-   the two decodes agree;
+   the two decodes agree (the card's with two decode walk launches, MV and
+   residual);
 4. the main path at full width: train, encode, pack and decode an 8-frame
    1920x1088 GOP through ``FusedVideoCodec`` on CUDA and through the IVC1
    container, with the decoder within 1e-2 of the encoder and PSNR-Y above
-   28 dB; counts the kernel's launches over that run and times each stage;
+   28 dB; counts the kernel's launches over that run (and the decode walk
+   kernel's: one for ``decode_gop``, two for the container's MV and
+   residual streams) and times each stage;
 5. band kernel vs plain: the kernel's band entry point (a row band with
    halo rows cut from the frame) against its plain PyTorch version at
    every band of 1088x1920 (4 bands) and 288x352 (2 bands) frames, sr 2, 4
@@ -46,9 +50,9 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    in-process gop=2 x tile=4 mesh on the card over 16 1920x1088 frames
    (two 8-frame GOPs, 272-row bands), against ``FusedVideoCodec.pack_gop``
    of each GOP word for word; the assembled IVC1 bytes equal
-   ``container_from_packed``'s and decode within 1e-2; counts the band
-   kernel's launches over that run and times the sharded step against the
-   fused encode+pack;
+   ``container_from_packed``'s and decode within 1e-2 (two decode walk
+   launches a GOP); counts the band kernel's launches over that run and
+   times the sharded step against the fused encode+pack;
 7. the intra codec at full width on CUDA (it runs no hand-written kernel;
    its stages are plain PyTorch and the C++ entropy engine, which must be
    built): (a) the ch3 point, trained on lena_small and coding lena at
@@ -106,7 +110,10 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    kernel's band entry point); ``decode-video`` to ``.npy``
    (within 1 level of the CPU's) and ``info`` of the sr=16 stream;
    ``rd-sweep --kind video --frames 3`` (every point equal to the CPU's);
-   ``tools/dryrun.py::dryrun_multichip(8, "cuda")`` on a 2x4 mesh;
+   ``tools/dryrun.py::dryrun_multichip(8, "cuda")`` on a 2x4 mesh; each
+   card run's decode walk launches equal to what its steps imply (one a
+   fused GOP's decode-check, two a container decode, none for the
+   adaptive codec);
 13. the lab's chapter examples and the scaling tool on the card, in
    process: the twins ``ivclab_tpu_torch.examples.ch1_basics``, ``ch2_entropy``,
    ``ch3_intra`` and ``ch4_video --quick --frames 3`` (their lines and wall
@@ -125,9 +132,21 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    28 dB (checked inside it), PSNR-Y within 0.01 dB of phase 4's and the
    payload bits equal to phase 4's, the adaptive container bytes equal to
    phase 9(a)'s, and exactly the ``me_kernel`` launches its steps imply
-   (365); then the host syncs of one warm round trip, each at its
-   ``file:line`` (``torch.cuda.set_sync_debug_mode("warn")``), and a
-   profile of 3 sync-free round trips (device ms, launches, busy share).
+   (365) and decode walk launches (48); then the host syncs of one warm
+   round trip, each at its ``file:line``
+   (``torch.cuda.set_sync_debug_mode("warn")``), which must be none, and a
+   profile of 3 sync-free round trips (device ms, launches, busy share);
+15. the decode walk kernel (``csrc/decode_walk.cu``, ``decode_blocks_hot``)
+   against its plain PyTorch version on the card, bit for bit: the MV and
+   residual streams of phase 4's 1080p container decode (captured at the
+   walk's call sites) and seeded corrupt streams from
+   ``fixtures.walk_streams`` (lengths below 0 and past the table and 32,
+   wrapped and clamped ranks, escapes, 32-bit advances, reads past the
+   stream, a 9,000-rank table, 37 outputs a block, 32,700 blocks); bad arguments are
+   refused; the kernel's device time on the residual walk beside
+   ``decode_walk_bound`` (charged from the walk's own bits a block) and
+   the plain walk's time; a profile
+   of one 1080p ``decode_gop`` (device ms, launches).
 
 The line before the last is a JSON list of the kernels with their launch
 counts over every main path above, times and bounds (the wide kernel's
@@ -142,8 +161,10 @@ import re
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 SEED = 20261016
+KERNEL_SOURCES = ("motion_search", "decode_walk")  # ivclab_tpu_torch/csrc/<name>.cu
 
 
 def fail(msg: str):
@@ -242,10 +263,11 @@ def launch_counts():
 
 
 def reset_launch_counts():
-    from ivclab_tpu_torch.ops import motion
+    from ivclab_tpu_torch.ops import bitpack, motion
 
     motion.LAUNCHES = motion.TILE_LAUNCHES = 0
     motion.WIDE_LAUNCHES = motion.WIDE_TILE_LAUNCHES = 0
+    bitpack.WALK_LAUNCHES = 0
 
 
 def profile_line(label: str, fn) -> None:
@@ -944,23 +966,34 @@ def run_cli(*argv) -> dict:
     return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
-def cli_phase(card: str) -> tuple[int, int, int, int]:
+def cli_phase(card: str) -> tuple[int, int, int, int, int]:
     """Phase 12: the CLI on the card, in process, each run against the same
     run with ``--device cpu``. Returns the (me_kernel frame, me_kernel band,
-    wide_kernel frame, wide_kernel band) launches of its main-path runs."""
+    wide_kernel frame, wide_kernel band, decode walk) launches of its
+    main-path runs."""
     import tempfile
     from pathlib import Path
 
     import numpy as np
     import torch
 
+    from ivclab_tpu_torch.ops import bitpack
     from ivclab_tpu_torch.tools.dryrun import dryrun_multichip
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
-    totals = [0, 0, 0, 0]
+    totals = [0, 0, 0, 0, 0]
 
-    def on_card(label, argv, want):
-        """One CLI run on the card (launches counted) and its CPU twin."""
+    def walked(label, want):
+        """Add the decode walk launches since the last reset; check them."""
+        n = bitpack.WALK_LAUNCHES
+        totals[4] += n
+        print(f"[cli] {label}: decode walk launches {n} (want {want})")
+        check(n == want, f"CLI {label}: the decode walk launched {n} times, not {want}")
+
+    def on_card(label, argv, want, walks):
+        """One CLI run on the card (launches counted) and its CPU twin;
+        ``walks`` decode walk launches: one a fused GOP's decode-check, two
+        a container decode's."""
         torch.cuda.synchronize()
         reset_launch_counts()
         out = run_cli("--device", "cuda", *argv(tmp / f"{label}.cuda"))
@@ -968,6 +1001,7 @@ def cli_phase(card: str) -> tuple[int, int, int, int]:
         counts = launch_counts()
         for k in range(4):
             totals[k] += counts[k]
+        walked(label, walks)
         ref = run_cli("--device", "cpu", *argv(tmp / f"{label}.cpu"))
         same = (tmp / f"{label}.cuda").read_bytes() == (tmp / f"{label}.cpu").read_bytes()
         print(f"[cli] {label}: {out.get('container_bytes')} bytes, stream == --device cpu "
@@ -993,25 +1027,34 @@ def cli_phase(card: str) -> tuple[int, int, int, int]:
         # first-p-frame searches once in training and once a P-frame
         want = (T if policy == "first-p-frame" else T - 1, 0, 0, 0)
         on_card(f"{policy} CIF T={T}", lambda p, policy=policy: [
-            "--trace", *enc, str(p), "--frames", str(T), "--codebook-policy", policy], want)
+            "--trace", *enc, str(p), "--frames", str(T), "--codebook-policy", policy], want,
+            1 if policy == "first-p-frame" else 0)
     on_card(f"first-p-frame CIF T={T} sr=16", lambda p: [
-        "--trace", *enc, str(p), "--frames", str(T), "--search-range", "16"], (0, 0, T, 0))
+        "--trace", *enc, str(p), "--frames", str(T), "--search-range", "16"], (0, 0, T, 0), 1)
     for policy, sr in (("first-p-frame", 0), ("per-frame", 0), ("per-frame", 16)):
+        fused = policy == "first-p-frame"
         on_card(f"{policy} CIF T=3 sr={sr}", lambda p, policy=policy, sr=sr: [
             *enc, str(p), "--frames", "3", "--search-range", str(sr), "--codebook-policy",
-            policy], (0, 0, 3 if policy == "first-p-frame" else 2, 0))
+            policy], (0, 0, 3 if fused else 2, 0), 1 if fused else 0)
     mesh_T = 16
+    # the sharded fused path decodes each of its 2 GOPs from its container
     on_card(f"first-p-frame CIF T={mesh_T} --gop 8 mesh 2x1", lambda p: [
         "--trace", *enc, str(p), "--frames", str(mesh_T), "--gop", "8",
-        "--mesh-gop", "2", "--mesh-tile", "1"], (8, 14, 0, 0))
+        "--mesh-gop", "2", "--mesh-tile", "1"], (8, 14, 0, 0), 4)
     on_card(f"first-p-frame CIF T={mesh_T} --gop 8 mesh 2x1 sr=16", lambda p: [
         *enc, str(p), "--frames", str(mesh_T), "--gop", "8", "--mesh-gop", "2",
-        "--mesh-tile", "1", "--search-range", "16"], (0, 0, 8, 14))
+        "--mesh-tile", "1", "--search-range", "16"], (0, 0, 8, 14), 4)
 
     # decode-video and info on the card's sr=16 stream, against the CPU
     stream = tmp / f"first-p-frame CIF T={T} sr=16.cuda"
-    dec = {d: run_cli("--device", d, "--trace", "decode-video", str(stream),
-                      str(tmp / f"dec-{d}.npy")) for d in ("cuda", "cpu")}
+    torch.cuda.synchronize()
+    reset_launch_counts()
+    dec = {"cuda": run_cli("--device", "cuda", "--trace", "decode-video", str(stream),
+                           str(tmp / "dec-cuda.npy"))}
+    torch.cuda.synchronize()
+    walked("decode-video sr=16 (one GOP container)", 2)
+    dec["cpu"] = run_cli("--device", "cpu", "--trace", "decode-video", str(stream),
+                         str(tmp / "dec-cpu.npy"))
     a, b = np.load(tmp / "dec-cuda.npy"), np.load(tmp / "dec-cpu.npy")
     diff = np.abs(a.astype(np.int64) - b.astype(np.int64))
     print(f"[cli] decode-video sr=16 stream to .npy: {dec['cuda']['frames']} frames "
@@ -1034,6 +1077,7 @@ def cli_phase(card: str) -> tuple[int, int, int, int]:
     torch.cuda.synchronize()
     counts = launch_counts()
     totals[0] += counts[0]
+    walked("rd-sweep video (the adaptive codec)", 0)
     sweep_cpu = run_cli("--device", "cpu", "rd-sweep", "--kind", "video", "--frames", "3")
     n_q = len(sweep["points"])
     print(f"[cli] rd-sweep video 3 frames: {n_q} points, launches {counts} (want "
@@ -1057,6 +1101,7 @@ def cli_phase(card: str) -> tuple[int, int, int, int]:
     print(f"[cli] dryrun_multichip(8, 'cuda'): passed in {time.perf_counter() - t0:.2f} s, "
           f"launches {counts}")
     check(counts[1] > 0, "dryrun_multichip launched no band search")
+    walked("dryrun_multichip (one GOP container decode)", 2)
     return tuple(totals)
 
 
@@ -1148,11 +1193,12 @@ def examples_phase(card: str) -> tuple[int, int]:
     return whole, counts[1]
 
 
-def bench_phase(card: str, psnr4: float, bits4, adaptive_bytes: int) -> int:
+def bench_phase(card: str, psnr4: float, bits4, adaptive_bytes: int) -> tuple[int, int]:
     """Phase 14: ``tools/bench.py`` at its defaults on the card (see the
-    module doc). Returns its ``me_kernel`` launches."""
+    module doc). Returns its ``me_kernel`` and decode walk launches."""
     import torch
 
+    from ivclab_tpu_torch.ops import bitpack
     from ivclab_tpu_torch.tools import bench
     from ivclab_tpu_torch.utils.timing import host_syncs
 
@@ -1163,6 +1209,7 @@ def bench_phase(card: str, psnr4: float, bits4, adaptive_bytes: int) -> int:
     run = bench.measure(device="cuda")
     torch.cuda.synchronize()
     counts = launch_counts()
+    walks = bitpack.WALK_LAUNCHES
     print(json.dumps(run.line))
     print(f"[bench] the line above: tools/bench.py --device cuda on {card}")
     # train searches one frame pair; every encode_gop and every adaptive
@@ -1171,23 +1218,29 @@ def bench_phase(card: str, psnr4: float, bits4, adaptive_bytes: int) -> int:
     # encode stage loop, then the adaptive warm and max(2, repeats - 1) timed
     gop_encodes = 1 + 1 + iters + gops + repeats * iters + iters
     want = (1 + (T - 1) * (gop_encodes + 1 + max(2, repeats - 1)), 0, 0, 0)
+    # one walk a decode_gop: the checked round trip, the untimed loop, the
+    # stream, the repeats and the decode stage loop (the adaptive decode
+    # walks full canonical codes, not this kernel)
+    want_walks = 1 + iters + gops + repeats * iters + iters
     d = run.line["detail"]
     payload_bits = int(run.frame_bits.sum())
     print(f"[bench] PSNR-Y {run.psnr_y:.4f} dB (phase 4: {psnr4:.4f}), payload bits "
           f"{payload_bits} (phase 4: {int(bits4.sum())}), adaptive container "
           f"{d['adaptive_1080p']['container_bytes']} bytes (phase 9a: {adaptive_bytes}), "
-          f"launches {counts} (want {want})")
+          f"launches {counts} (want {want}), decode walk launches {walks} (want {want_walks})")
     check(abs(run.psnr_y - psnr4) <= 0.01, "the bench's PSNR-Y differs from phase 4's")
     check(payload_bits == int(bits4.sum()), "the bench's payload bits differ from phase 4's")
     check(d["adaptive_1080p"]["container_bytes"] == adaptive_bytes,
           "the bench's adaptive container differs from phase 9a's")
     check(counts == want, f"tools/bench.py launches {counts}, not {want}")
+    check(walks == want_walks, f"tools/bench.py launched the walk {walks} times, not {want_walks}")
 
     syncs = host_syncs(run.roundtrip)
     print(f"[bench] host syncs in one warm round trip: {sum(n for _, n in syncs)} at "
           f"{len(syncs)} places")
     for where, n in syncs:
         print(f"[bench]   {where} x{n}")
+    check(not syncs, "a warm round trip makes the host wait for the card")
 
     def loop():
         for _ in range(iters):
@@ -1197,7 +1250,115 @@ def bench_phase(card: str, psnr4: float, bits4, adaptive_bytes: int) -> int:
     print(f"[bench] {iters} sync-free round trips: {wall:.3f} ms (median of 3, synchronised); "
           f"profile: {profile_summary(loop, wall)} ({card})")
     print(f"[bench] phase 14 took {time.perf_counter() - t_phase:.1f} s ({card})")
-    return counts[0]
+    return counts[0], walks
+
+
+def walk_phase(dev, card: str, blob: bytes, decode_once):
+    """Phase 15: the decode walk kernel against its plain version on the
+    card (see the module doc). ``blob`` is phase 4's 1080p container and
+    ``decode_once`` one ``decode_gop`` of phase 4's GOP. Returns (largest
+    difference, the kernel's device ms and the plain walk's ms on the
+    residual walk, its bound)."""
+    import numpy as np
+    import torch
+
+    from ivclab_tpu_torch import FusedVideoCodec
+    from ivclab_tpu_torch.models import fastvideo
+    from ivclab_tpu_torch.ops import bitpack
+    from ivclab_tpu_torch.utils import fixtures
+    from ivclab_tpu_torch.utils.timing import (
+        cuda_ms,
+        decode_walk_bound,
+        device_kernels,
+        kernel_device_us,
+    )
+
+    # the walks of the container decode, as its call sites pass them
+    calls = []
+    real = fastvideo.decode_blocks_hot
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    fastvideo.decode_blocks_hot = spy
+    try:
+        _, ok = FusedVideoCodec.decode_from_container(blob, device=dev)
+    finally:
+        fastvideo.decode_blocks_hot = real
+    check(bool(ok) and len(calls) == 2, "the container decode did not walk MV and residual")
+    cases = [("1080p GOP's MV streams", calls[0]), ("1080p GOP's residual streams", calls[1])]
+
+    def on_card(c):
+        return tuple(torch.from_numpy(v.astype(np.int64)).to(dev) if isinstance(v, np.ndarray)
+                     else v for v in (c["local"], c["counts"], c["lj"], c["first_code"],
+                                      c["group_offset"], c["alpha_of_rank"], c["min_len"],
+                                      c["esc_rank"], c["max_syms"], c["raw_bits"], c["max_len"]))
+
+    for min_len, esc in ((-3, 4), (-3, 0), (1, 4), (9, 4), (20, 4)):
+        c = fixtures.walk_streams(SEED + min_len + esc, B=32768, min_len=min_len, esc_rank=esc)
+        cases.append((f"corrupt streams, min_len {min_len}, escape rank {esc}", on_card(c)))
+    c = fixtures.walk_streams(SEED, B=32700, n_ranks=9000, max_syms=37, raw_bits=12)
+    cases.append(("corrupt streams, 9,000 ranks, 37 outputs a block, a partial last CTA",
+                  on_card(c)))
+
+    err = 0
+    for label, args in cases:
+        got = bitpack.decode_blocks_hot_cuda(*args)
+        want = bitpack.decode_blocks_hot_plain(*args)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        err = max(err, int((got.long() - want.long()).abs().max()))
+        B, LW = args[0].shape
+        counts = args[1].long()
+        print(f"[walk] {label}: B={B} LW={LW} max_syms={args[8]}, counts mean "
+              f"{float(counts.clamp(min=0).float().mean()):.2f} max {int(counts.max())}: "
+              f"{bad} of {got.numel()} outputs differ")
+        check(bad == 0, f"decode walk kernel != plain: {label}")
+
+    before = bitpack.WALK_LAUNCHES
+    res = calls[1]
+    for name, bad_args in (("raw_bits 0", res[:9] + (0, res[10])),
+                           ("max_len 64", res[:10] + (64,)),
+                           ("counts on the CPU", (res[0], res[1].cpu()) + res[2:])):
+        try:
+            bitpack.decode_blocks_hot_cuda(*bad_args)
+        except ValueError as e:
+            print(f"[walk] {name} refused: {e}")
+        else:
+            fail(f"the decode walk kernel took {name}")
+    check(bitpack.WALK_LAUNCHES == before, "a refused walk counted a launch")
+
+    B, LW = res[0].shape
+    _, block_bits = bitpack.decode_blocks_hot_plain(*res, return_bits=True)
+    block_bits = block_bits.cpu().numpy()
+    bound = decode_walk_bound(block_bits, LW, res[8])
+    print(f"[walk] 1080p residual walk: {int(block_bits.sum())} bits over {B} blocks, mean "
+          f"{float(block_bits.mean()):.2f}, largest {int(block_bits.max())}; "
+          f"{int((block_bits > 0).sum())} blocks walk at least one bit")
+    for _ in range(3):
+        bitpack.decode_blocks_hot_cuda(*res)
+        bitpack.decode_blocks_hot_plain(*res)
+    kernel_us, plain_ms = [], []
+    for _ in range(2):  # alternate, kernel first then plain
+        kernel_us.append(float(np.mean(kernel_device_us(
+            lambda: bitpack.decode_blocks_hot_cuda(*res), 20, "walk_kernel"))))
+        plain_ms.append(cuda_ms(lambda: bitpack.decode_blocks_hot_plain(*res), 3))
+    ms, plain = float(np.mean(kernel_us)) / 1e3, float(np.mean(plain_ms))
+    print(f"[walk] 1080p residual walk (B={B}, LW={LW}, max_syms={res[8]}): kernel {kernel_us} "
+          f"us device (mean of 20 launches), plain {plain_ms} ms per call (CUDA events); "
+          f"bound {bound[0] * 1e3:.3f} us ({bound[1]}), {bound[0] / ms:.3f} of it ({card})")
+
+    kernels = device_kernels(decode_once)
+    if kernels:
+        walk_us = sum(us for name, us in kernels if "walk_kernel" in name)
+        total = sum(us for _, us in kernels)
+        print(f"[walk] profile of one 1080p decode_gop: {len(kernels)} kernel launches, "
+              f"{total / 1e3:.3f} device ms, walk_kernel {walk_us / 1e3:.4f} ms ({card})")
+    else:
+        print("[walk] profile of one 1080p decode_gop: not measured (the profiler's trace "
+              "holds no device event)")
+    return err, ms, plain, bound
 
 
 def main() -> None:
@@ -1206,9 +1367,10 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is False")
+    t_start = time.perf_counter()
 
     from ivclab_tpu_torch import FusedVideoCodec
-    from ivclab_tpu_torch.ops import motion
+    from ivclab_tpu_torch.ops import bitpack, motion
     from ivclab_tpu_torch.ops.dct import require_full_fp32
     from ivclab_tpu_torch.runtime import cuda_build
     from ivclab_tpu_torch.utils import fixtures
@@ -1224,17 +1386,20 @@ def main() -> None:
           f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
 
     # ---------------------------------------------------------- 1. build
+    # one nvcc for each source, all started together
     t0 = time.perf_counter()
-    lib_path, log = cuda_build.build("motion_search")
+    with ThreadPoolExecutor(len(KERNEL_SOURCES)) as pool:
+        builds = list(pool.map(cuda_build.build, KERNEL_SOURCES))
     build_s = time.perf_counter() - t0
-    print(f"[build] {lib_path.name} from ivclab_tpu_torch/csrc/motion_search.cu "
-          f"in {build_s:.2f} s")
-    for line in log.splitlines():
-        if any(w in line for w in ("entry function", "registers", "spill")):
-            print(f"[build] {line.strip()}")
-    spills = [line for line in log.splitlines()
-              if any(int(n) for n in re.findall(r"(\d+) bytes spill", line))]
-    check(not spills, f"ptxas reports spills: {spills}")
+    for name, (lib_path, log) in zip(KERNEL_SOURCES, builds):
+        print(f"[build] {lib_path.name} from ivclab_tpu_torch/csrc/{name}.cu "
+              f"({build_s:.2f} s for all {len(KERNEL_SOURCES)})")
+        for line in log.splitlines():
+            if any(w in line for w in ("entry function", "registers", "spill")):
+                print(f"[build] {line.strip()}")
+        spills = [line for line in log.splitlines()
+                  if any(int(n) for n in re.findall(r"(\d+) bytes spill", line))]
+        check(not spills, f"ptxas reports spills in {name}.cu: {spills}")
     require_full_fp32()
     check(torch.backends.cuda.matmul.allow_tf32 is False, "cuda matmul TF32 is on")
     check(torch.backends.cudnn.allow_tf32 is False, "cudnn TF32 is on")
@@ -1364,16 +1529,23 @@ def main() -> None:
     print(f"[pack] 256x480 T=4: CUDA {len(bg)} bytes, CPU {len(bc)} bytes, "
           f"identical {bg == bc}")
     check(bg == bc, "CUDA and CPU container bytes differ")
+    torch.cuda.synchronize()
+    bitpack.WALK_LAUNCHES = 0
     rg, okg = FusedVideoCodec.decode_from_container(bg, device=dev)
+    torch.cuda.synchronize()
+    walk_launches = bitpack.WALK_LAUNCHES
     rc, okc = FusedVideoCodec.decode_from_container(bc, device="cpu")
     gap = float((rg.cpu() - rc).abs().max())
-    print(f"[pack] decode CUDA vs CPU max abs {gap:.3e}, ok {bool(okg)} {bool(okc)}")
+    print(f"[pack] decode CUDA vs CPU max abs {gap:.3e}, ok {bool(okg)} {bool(okc)}; "
+          f"decode walk launches {walk_launches} on the card")
     check(bool(okg) and bool(okc) and gap < 1e-2, "CUDA and CPU decodes disagree")
+    check(walk_launches == 2, f"the card's container decode walked {walk_launches} times, not 2")
 
     # --------------------------------------- 4. the main path at full width
     y_dev = torch.from_numpy(y).to(dev)
     torch.cuda.synchronize()
     motion.LAUNCHES = 0
+    bitpack.WALK_LAUNCHES = 0
     codec = FusedVideoCodec(quantization_scale=1.0, search_range=4, device=dev).train(y[:2])
     before = motion.LAUNCHES
     qsyms, mvs, mv_bits, enc = codec.encode_gop(y_dev)
@@ -1384,6 +1556,7 @@ def main() -> None:
     rec2, ok2 = FusedVideoCodec.decode_from_container(blob, device=dev)
     torch.cuda.synchronize()
     launches = motion.LAUNCHES
+    gop_walks = bitpack.WALK_LAUNCHES
 
     check(bool(p.ok), "pack buckets failed")
     check(bool(ok) and bool(ok2), "entropy decode failed")
@@ -1397,7 +1570,11 @@ def main() -> None:
     print(f"[gop] 1920x1088 T=8 q=1.0 sr=4: decoder vs encoder max abs {err:.3e}, "
           f"container decode max abs {err2:.3e}, PSNR-Y {psnr_y:.4f} dB, "
           f"mean bpp {mean_bpp:.6f}, container {len(blob)} bytes, "
-          f"ME launches {gop_launches} in encode_gop, {launches} in the whole run")
+          f"ME launches {gop_launches} in encode_gop, {launches} in the whole run, decode "
+          f"walk launches {gop_walks}")
+    check(gop_walks == 3, f"the decode walk kernel launched {gop_walks} times, not 3 "
+                          f"(decode_gop, then the container's MV and residual streams)")
+    walk_launches += gop_walks
     check(err < 1e-2, f"decoder mismatch {err}")
     check(err2 < 1e-2, f"container decode mismatch {err2}")
     check(psnr_y > 28.0, f"PSNR-Y collapsed: {psnr_y}")
@@ -1595,6 +1772,8 @@ def main() -> None:
           f"band kernel launched {tile_launches} < {n_gop * (gop_len - 1) * n_tile} times")
 
     blobs = parallel.assemble_video_payloads(fused, streams, gop_len)
+    torch.cuda.synchronize()
+    bitpack.WALK_LAUNCHES = 0
     for g, (p6, (_, mvs6, _, rec6)) in enumerate(zip(packs, enc6)):
         sl = slice(g * gop_len, (g + 1) * gop_len)
         for field in ("words", "offsets", "counts", "group_bits", "totals"):
@@ -1616,6 +1795,12 @@ def main() -> None:
               f"equal the fused pack; {len(blobs[g])} assembled bytes == container_from_packed; "
               f"container decode ok {bool(ok_c)}, max abs {err_c:.3e}")
         check(bool(ok_c) and err_c < 1e-2, f"GOP {g}: container decode failed ({err_c})")
+    torch.cuda.synchronize()
+    shard_walks = bitpack.WALK_LAUNCHES
+    print(f"[shard] decode walk launches over the {n_gop} container decodes: {shard_walks}")
+    check(shard_walks == 2 * n_gop, f"the container decodes walked {shard_walks} times, "
+                                    f"not {2 * n_gop}")
+    walk_launches += shard_walks
 
     def fused_pair():
         for g in range(n_gop):
@@ -1656,8 +1841,9 @@ def main() -> None:
     library_phase(dev, card)
 
     # ------------------------------------------- 12. the CLI on the card
-    cli_whole, cli_band, wide_launches, wide_tile_launches = cli_phase(card)
+    cli_whole, cli_band, wide_launches, wide_tile_launches, cli_walks = cli_phase(card)
     launches += cli_whole
+    walk_launches += cli_walks
     tile_launches += cli_band
     check(wide_launches > 0, "the CLI runs launched no wide_kernel on a frame")
     check(wide_tile_launches > 0, "the CLI runs launched no wide_kernel on a band")
@@ -1668,8 +1854,16 @@ def main() -> None:
     tile_launches += ex_band
 
     # ----------------------------------- 14. the benchmark twin on the card
-    launches += bench_phase(card, psnr_y, bits, adaptive_bytes)
+    bench_launches, bench_walks = bench_phase(card, psnr_y, bits, adaptive_bytes)
+    launches += bench_launches
+    walk_launches += bench_walks
 
+    # ------------------------------ 15. the decode walk kernel against plain
+    walk_err, walk_ms, walk_plain_ms, walk_bound = walk_phase(
+        dev, card, blob,
+        lambda: codec.decode_gop(p.words, p.offsets, p.counts, mvs, H, W, p.block_words, p.cap))
+
+    print(f"[smoke] phases 1-15 took {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": [{
         "name": "motion_search",
         "route": "cuda",
@@ -1718,6 +1912,18 @@ def main() -> None:
         "bound_ms": wide_band_bound[0],
         "bound_by": wide_band_bound[1],
         "library_ms": None,
+    }, {
+        "name": "decode_blocks_hot",
+        "route": "cuda",
+        "source": "ivclab_tpu_torch/csrc/decode_walk.cu",
+        "replaces": "ivclab_tpu/ops/bitpack.py:264",  # an XLA while_loop, not a Pallas kernel
+        "launches": walk_launches,
+        "max_abs_err": walk_err,
+        "ms": walk_ms,  # the 1080p GOP's residual walk
+        "plain_ms": walk_plain_ms,
+        "bound_ms": walk_bound[0],
+        "bound_by": walk_bound[1],
+        "library_ms": None,  # no single PyTorch call decodes a canonical Huffman stream
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -9,7 +9,7 @@ a CUDA tensor, and the C++ entropy engine at its first use, never at
 import.
 """
 
-__version__ = "0.1.0"
+from ivclab_tpu_torch.version import __version__
 
 # L0 utilities
 from ivclab_tpu_torch.utils import (

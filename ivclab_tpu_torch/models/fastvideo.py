@@ -237,6 +237,7 @@ class FusedVideoCodec:
         self.residual_code: HotCode | None = None
         self.mv_code: HotCode | None = None
         self._buckets: tuple[int, int, int] | None = None
+        self._mv_lens: tuple[HotCode, torch.Tensor] | None = None
 
     @classmethod
     def from_reference_state(cls, state: dict, device: str | torch.device = "cuda"):
@@ -304,16 +305,24 @@ class FusedVideoCodec:
     def encode_gop(self, frames_y):
         """[T, H, W] float32 -> (qsyms [T, N, 64], mvs [T, H/8, W/8],
         mv_bits [T], recons [T, H, W])."""
-        # the MV code's hot values are sorted by frequency, so map each
-        # alphabet index to its code length (escape length where not hot)
-        mvc = self.mv_code
-        lens = np.zeros(mvc.alphabet_n, dtype=np.int32)
-        lens[mvc.hot_values] = mvc.code.lengths[: mvc.K]
-        lens[lens == 0] = int(mvc.code.lengths[mvc.K]) + mvc.raw_bits
         frames = self._frames(frames_y)
         self._require_fp32()
-        return _encode_gop(frames, self.qt, self.inv_qt,
-                           torch.from_numpy(lens).to(self.device), self.sr)
+        return _encode_gop(frames, self.qt, self.inv_qt, self._mv_length_table(), self.sr)
+
+    def _mv_length_table(self) -> torch.Tensor:
+        """Each motion index's code length, on the device: built once for
+        each ``mv_code`` object (``train``, ``from_reference_state`` and the
+        container decode each install a new one), so a warm ``encode_gop``
+        copies nothing from the host."""
+        mvc = self.mv_code
+        if self._mv_lens is None or self._mv_lens[0] is not mvc:
+            # the MV code's hot values are sorted by frequency, so map each
+            # alphabet index to its code length (escape length where not hot)
+            lens = np.zeros(mvc.alphabet_n, dtype=np.int32)
+            lens[mvc.hot_values] = mvc.code.lengths[: mvc.K]
+            lens[lens == 0] = int(mvc.code.lengths[mvc.K]) + mvc.raw_bits
+            self._mv_lens = (mvc, torch.from_numpy(lens).to(self.device))
+        return self._mv_lens[1]
 
     def pack_gop(self, qsyms, check: bool = True) -> PackedGop:
         """Hot/escape Huffman packing of the residual symbol buffers.

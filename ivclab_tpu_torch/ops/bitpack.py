@@ -6,6 +6,12 @@ also stands for the JAX package's ``pack_codes_grouped_dense2``), and the
 block-parallel decoders (``decode_blocks_device`` for full canonical codes,
 ``locals_from_groups`` + ``decode_blocks_hot`` for hot/escape codes).
 
+``decode_blocks_hot`` dispatches on the device of its stream: CPU tensors
+walk the plain PyTorch loop (``decode_blocks_hot_plain``), CUDA tensors
+the hand-written Hopper kernel of ``csrc/decode_walk.cu`` (or the call
+raises), where each thread walks one block to its own count, so no host
+read bounds the walk.
+
 Bitstream format: MSB-first within big-endian 32-bit words; bit ``k`` of
 the stream is bit ``31 - (k mod 32)`` of word ``k // 32``. Blocks are
 packed into word-aligned groups of ``group_size`` blocks, each group one
@@ -25,12 +31,19 @@ JAX form adds disjoint bit fields and truncates.
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import numpy as np
 import torch
 
 from ivclab_tpu_torch.entropy.codebook import MAX_CODE_LEN, CanonicalCode
 
 MASK32 = 0xFFFFFFFF
+
+# Launches of the hot/escape walk kernel (``csrc/decode_walk.cu``) made in
+# this process by ``decode_blocks_hot_cuda``.
+WALK_LAUNCHES = 0
 
 
 def symbol_bit_layout(lens: torch.Tensor):
@@ -262,10 +275,23 @@ def _as_i64(x, device) -> torch.Tensor:
     return torch.as_tensor(x).to(device=device, dtype=torch.int64)
 
 
-def decode_blocks_hot(local: torch.Tensor, block_sym_counts: torch.Tensor, lj, first_code,
-                      group_offset, alpha_of_rank, min_len: int, esc_rank: int,
-                      max_syms: int, raw_bits: int, max_len: int | None = None) -> torch.Tensor:
-    """Block-parallel canonical decode of hot+escape streams.
+def _hot_tables(lj, first_code, group_offset, alpha_of_rank, max_len, device):
+    """The walk's tables as int64 tensors on ``device``, cut to ``max_len``
+    (None: :data:`MAX_CODE_LEN`), and ``max_len``."""
+    if max_len is None:
+        max_len = MAX_CODE_LEN
+    lj = _as_i64(lj, device)
+    lj = lj[: max_len - 1] if max_len > 1 else lj[:1]
+    fc = _as_i64(first_code, device)[: max_len + 1]
+    go = _as_i64(group_offset, device)[: max_len + 1]
+    return lj, fc, go, _as_i64(alpha_of_rank, device), max_len
+
+
+def decode_blocks_hot_plain(local: torch.Tensor, block_sym_counts: torch.Tensor, lj, first_code,
+                            group_offset, alpha_of_rank, min_len: int, esc_rank: int,
+                            max_syms: int, raw_bits: int, max_len: int | None = None,
+                            return_bits: bool = False):
+    """Block-parallel canonical decode of hot+escape streams, in plain PyTorch.
 
     ``local``: ``[B, LW]`` phase-aligned block streams (see
     :func:`locals_from_groups`). All blocks advance one symbol per step:
@@ -275,18 +301,17 @@ def decode_blocks_hot(local: torch.Tensor, block_sym_counts: torch.Tensor, lj, f
     the window. Each block keeps a bit position into its stream (the JAX
     form shifts a register instead; the windows are the same). Returns
     ``[B, max_syms]`` int32 alphabet indices, zero past each block's count.
+    The loop runs to the largest count, which it reads from the device;
+    the kernel of :func:`decode_blocks_hot_cuda` needs no such bound.
+    ``return_bits`` also returns each block's bits walked (``[B]`` int64),
+    what ``utils/timing.py::decode_walk_bound`` charges for its reads.
     """
-    if max_len is None:
-        max_len = MAX_CODE_LEN
     dev = local.device
     local = local.to(torch.int64) & MASK32
     B, LW = local.shape
     counts = block_sym_counts.to(device=dev, dtype=torch.int32)
-    lj = _as_i64(lj, dev)
-    lj = lj[: max_len - 1] if max_len > 1 else lj[:1]
-    fc = _as_i64(first_code, dev)[: max_len + 1]
-    go = _as_i64(group_offset, dev)[: max_len + 1]
-    ar = _as_i64(alpha_of_rank, dev)
+    lj, fc, go, ar, max_len = _hot_tables(lj, first_code, group_offset, alpha_of_rank, max_len,
+                                          dev)
     n_ranks = ar.shape[0]
     min_len = int(min_len)
     esc_rank = int(esc_rank)
@@ -315,7 +340,9 @@ def decode_blocks_hot(local: torch.Tensor, block_sym_counts: torch.Tensor, lj, f
         rank = rank.clamp(0, n_ranks - 1)
         val_hot = ar[rank]
         is_esc = rank == esc_rank
-        raw = torch.where(L < 32, (win << L.clamp(0, 31)) & MASK32, 0) >> (32 - raw_bits)
+        # u32 shift: lengths outside [0, 32) shift everything out
+        raw = torch.where((L >= 0) & (L < 32), (win << L.clamp(0, 31)) & MASK32, 0)
+        raw = raw >> (32 - raw_bits)
         value = torch.where(is_esc, raw, val_hot)
         Lt = L + torch.where(is_esc, raw_bits, 0)
 
@@ -326,4 +353,95 @@ def decode_blocks_hot(local: torch.Tensor, block_sym_counts: torch.Tensor, lj, f
         # five bits, as the JAX register shift does
         step = torch.where(lu == 32, 32, lu & 31)
         bitpos = bitpos + step[:, None]
+    return (out, bitpos[:, 0]) if return_bits else out
+
+
+def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the C interface of a ``csrc/decode_walk.cu`` build on ``lib``."""
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    lib.ivc_decode_blocks_hot.argtypes = [vp, i, i, vp, vp, i, vp, vp, i, vp, i, i, i, i, i,
+                                          vp, vp]
+    lib.ivc_decode_blocks_hot.restype = i
+    return lib
+
+
+@functools.lru_cache(maxsize=None)
+def _walk_lib():
+    from ivclab_tpu_torch.runtime import cuda_build
+
+    return bind(cuda_build.load("decode_walk"))
+
+
+def decode_blocks_hot_cuda(local: torch.Tensor, block_sym_counts: torch.Tensor, lj, first_code,
+                           group_offset, alpha_of_rank, min_len: int, esc_rank: int,
+                           max_syms: int, raw_bits: int, max_len: int | None = None
+                           ) -> torch.Tensor:
+    """Launch the Hopper walk kernel (``csrc/decode_walk.cu``): what
+    :func:`decode_blocks_hot_plain` computes, one thread per block, each
+    walking to its own count.
+
+    ``local`` and ``block_sym_counts`` must be CUDA tensors on one device
+    (``[B, LW]`` words, ``[B]`` counts), and the tables tensors there or
+    host arrays; ``raw_bits`` in [1, 32], ``max_len`` in [0, 63] with
+    ``max_len + 1`` first-code and group-offset entries, at least one rank.
+    Raises on anything else and on a launch error. Runs on the current
+    stream without synchronising.
+    """
+    global WALK_LAUNCHES
+    if not local.is_cuda:
+        raise ValueError(f"needs a CUDA stream tensor, got one on {local.device}")
+    dev = local.device
+    if local.dim() != 2:
+        raise ValueError(f"local must be [B, LW], got shape {tuple(local.shape)}")
+    B, LW = local.shape
+    if block_sym_counts.device != dev or block_sym_counts.shape != (B,):
+        raise ValueError(f"block_sym_counts must be [{B}] on {dev}, got "
+                         f"{tuple(block_sym_counts.shape)} on {block_sym_counts.device}")
+    lj, fc, go, ar, max_len = _hot_tables(lj, first_code, group_offset, alpha_of_rank, max_len,
+                                          dev)
+    if not 0 <= max_len < 64 or fc.shape[0] != max_len + 1 or go.shape[0] != max_len + 1:
+        raise ValueError(f"max_len {max_len} needs max_len + 1 <= 64 first-code and "
+                         f"group-offset entries, got {fc.shape[0]} and {go.shape[0]}")
+    if ar.shape[0] < 1:
+        raise ValueError("alpha_of_rank is empty")
+    if not 1 <= int(raw_bits) <= 32:
+        raise ValueError(f"raw_bits {raw_bits} outside [1, 32]")
+    if int(max_syms) < 0:
+        raise ValueError(f"max_syms {max_syms} < 0")
+    min_len = int(min_len)
+    if not -(2**31) <= min_len < 2**31:
+        raise ValueError(f"min_len {min_len} does not fit in an int32")
+    esc = int(esc_rank)
+    esc = esc if 0 <= esc < ar.shape[0] else -1
+    local = local.to(torch.int64).contiguous()
+    counts = block_sym_counts.to(torch.int32).contiguous()
+    lj, fc, go, ar = (x.contiguous() for x in (lj, fc, go, ar))
+    out = torch.empty((B, int(max_syms)), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _walk_lib().ivc_decode_blocks_hot(
+        local.data_ptr(), B, LW, counts.data_ptr(), lj.data_ptr(), lj.shape[0], fc.data_ptr(),
+        go.data_ptr(), max_len, ar.data_ptr(), ar.shape[0], min_len, esc,
+        int(max_syms), int(raw_bits), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"decode walk kernel refused or failed (cudaError {rc}): B={B}, "
+                           f"LW={LW}, max_syms={max_syms}, max_len={max_len}, "
+                           f"{ar.shape[0]} ranks")
+    WALK_LAUNCHES += 1
     return out
+
+
+def decode_blocks_hot(local: torch.Tensor, block_sym_counts: torch.Tensor, lj, first_code,
+                      group_offset, alpha_of_rank, min_len: int, esc_rank: int,
+                      max_syms: int, raw_bits: int, max_len: int | None = None) -> torch.Tensor:
+    """Block-parallel canonical decode of hot+escape streams -> ``[B,
+    max_syms]`` int32 alphabet indices, zero past each block's count.
+
+    CPU streams run :func:`decode_blocks_hot_plain`; CUDA streams the
+    kernel through :func:`decode_blocks_hot_cuda`, which reads nothing back
+    to the host.
+    """
+    walk = decode_blocks_hot_cuda if local.is_cuda else decode_blocks_hot_plain
+    return walk(local, block_sym_counts, lj, first_code, group_offset, alpha_of_rank, min_len,
+                esc_rank, max_syms, raw_bits, max_len)

@@ -202,7 +202,7 @@ def map_codes_hot(buf: torch.Tensor, valid_len: torch.Tensor, hot_values, hot_fu
     n = 1 << raw_bits
     lut_fused = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(0, hv, hf) & MASK32
     lut_hot = torch.zeros(n, dtype=torch.bool, device=dev)
-    lut_hot[hv] = True
+    lut_hot.index_fill_(0, hv, True)  # a device fill: no host scalar is copied
     in_lut = (sym >= 0) & (sym < n)
     slot = torch.where(in_lut, sym, 0)
     is_hot = in_lut & lut_hot[slot]

@@ -1,7 +1,9 @@
 """Deterministic synthetic test/benchmark imagery (numpy).
 
 A copy of ``ivclab_tpu/utils/fixtures.py`` (``image``, ``degraded``,
-``video`` and ``video_1080p``): the same name, length and shape give the same pixels. The
+``video`` and ``video_1080p``): the same name, length and shape give the
+same pixels; ``walk_streams`` (corrupt entropy streams for the decode
+walk) is the port's own. The
 course reference validates against real images and sequences distributed
 out of band; these are reproducible stand-ins with natural-image-like
 statistics (multi-octave smooth value noise + edges + texture) and real
@@ -155,3 +157,45 @@ def video(name: str = "foreman", num_frames: int = 21, shape=(288, 352)) -> np.n
 def video_1080p(num_frames: int = 8) -> np.ndarray:
     """1080p benchmark sequence (1088 x 1920, the throughput workload)."""
     return video("bench1080", num_frames=num_frames, shape=(1088, 1920))
+
+
+def walk_streams(seed: int, B: int = 512, LW: int = 4, max_syms: int = 40, min_len: int = 1,
+                 raw_bits: int = 24, max_len: int = 16, n_ranks: int = 5,
+                 esc_rank: int | None = None) -> dict:
+    """Random hot/escape streams and decoder tables that take the decode
+    walk (``ops/bitpack.py::decode_blocks_hot``) through its edge cases.
+
+    Random words are corrupt codes. ``min_len`` sets where code lengths
+    fall: below 0 (``min_len < 0``), past ``max_len`` (out of the table) or
+    past 32 (``min_len > 16``). Random first codes and group offsets wrap
+    ranks past int32 and clamp them; the first four lengths get small ones,
+    so middle ranks occur too. The escape is the last of ``n_ranks`` ranks
+    unless ``esc_rank`` says otherwise (rank 0 is where lengths outside the
+    table land), so escapes are common; length 8 sends every code to the
+    last rank, so with ``raw_bits`` 24 its escapes advance exactly 32
+    bits. Streams of ``LW`` words are read past their end, and counts run
+    from -2 to past ``max_syms``.
+
+    Returns the walk's arguments as numpy arrays in the JAX tables' types
+    (uint32 words, bounds and first codes; int32 counts, group offsets and
+    ranks) and ints.
+    """
+    rng = np.random.default_rng(seed)
+    first_code = rng.integers(0, 2**32, 33, dtype=np.uint64).astype(np.uint32)
+    group_offset = rng.integers(-(2**31), 2**31, 33, dtype=np.int64).astype(np.int32)
+    first_code[:4] = 0
+    group_offset[:4] = rng.integers(-2, n_ranks, 4)
+    first_code[8], group_offset[8] = 0, n_ranks - 1
+    return {
+        "local": rng.integers(0, 2**32, (B, LW), dtype=np.uint64).astype(np.uint32),
+        "counts": rng.integers(-2, max_syms + 8, B).astype(np.int32),
+        "lj": np.sort(rng.integers(0, 2**32, 32, dtype=np.uint64)).astype(np.uint32),
+        "first_code": first_code,
+        "group_offset": group_offset,
+        "alpha_of_rank": rng.integers(0, 1 << min(raw_bits, 30), n_ranks).astype(np.int32),
+        "min_len": int(min_len),
+        "esc_rank": n_ranks - 1 if esc_rank is None else int(esc_rank),
+        "max_syms": int(max_syms),
+        "raw_bits": int(raw_bits),
+        "max_len": int(max_len),
+    }

@@ -9,6 +9,7 @@ the profiler's device trace instead.
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 # Published peaks of one H100 SXM at its full 700 W limit (NVIDIA's data
@@ -29,6 +30,25 @@ def motion_search_bound(ref_rows: int, H: int, W: int, sr: int) -> tuple[float, 
     op_ms = ops / H100_FP32_FLOPS * 1e3
     byte_ms = nbytes / H100_HBM_BYTES_PER_S * 1e3
     return (op_ms, "operations") if op_ms >= byte_ms else (byte_ms, "bytes")
+
+
+def decode_walk_bound(block_bits, LW: int, max_syms: int) -> tuple[float, str]:
+    """(least ms, "bytes") for one hot/escape decode walk on the H100.
+
+    ``block_bits`` holds each block's bits walked (``[B]``, as
+    ``decode_blocks_hot_plain(..., return_bits=True)`` gives them): of the
+    block's row of ``LW`` int64 words (rows from a 32-byte boundary), the
+    walk must read the 32-byte sectors of the ``ceil(bits / 32)`` words
+    those bits lie in. Each block's int32 count is read once and its
+    ``max_syms`` int32 outputs are written once. The code tables (a few
+    hundred bytes) and the walk's integer work, a few dozen instructions
+    per decoded symbol, are far below that."""
+    bits = np.asarray(block_bits, dtype=np.int64).reshape(-1)
+    words = np.minimum((bits + 31) // 32, LW)
+    start = np.arange(bits.size, dtype=np.int64) * (LW * 8)
+    sectors = np.where(words > 0, (start + words * 8 + 31) // 32 - start // 32, 0)
+    nbytes = int(sectors.sum()) * 32 + bits.size * (4 + max_syms * 4)
+    return nbytes / H100_HBM_BYTES_PER_S * 1e3, "bytes"
 
 
 def cuda_ms(fn, iters: int) -> float:

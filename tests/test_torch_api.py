@@ -309,6 +309,28 @@ def test_exports_cover_the_jax_package(pair):
         assert getattr(tpkg, n) is not None
 
 
+def test_version_module_equals_jax():
+    import ivclab_tpu.version as jversion
+    import ivclab_tpu_torch.version as tversion
+
+    assert tversion.__version__ == jversion.__version__ == ivclab_tpu_torch.__version__
+
+
+def test_pyproject_installs_both_clis():
+    """``ivclab-tpu-torch`` runs the port's CLI; ``ivclab-tpu`` stays the
+    JAX package's."""
+    import importlib
+    import tomllib
+
+    root = os.path.dirname(os.path.dirname(__file__))
+    with open(os.path.join(root, "pyproject.toml"), "rb") as f:
+        scripts = tomllib.load(f)["project"]["scripts"]
+    assert scripts["ivclab-tpu"] == "ivclab_tpu.cli:main"
+    assert scripts["ivclab-tpu-torch"] == "ivclab_tpu_torch.cli:main"
+    module, attr = scripts["ivclab-tpu-torch"].split(":")
+    assert callable(getattr(importlib.import_module(module), attr))
+
+
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
     """Every module of the port, as ``pkgutil.walk_packages`` finds it,
     imports without JAX, the JAX package, PIL or matplotlib."""
@@ -327,7 +349,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
                          timeout=120, cwd=os.path.dirname(os.path.dirname(__file__)))
     assert out.returncode == 0, out.stderr
     names, foreign = json.loads(out.stdout.strip().splitlines()[-1])
-    for name in ("ivclab_tpu_torch.cli", "ivclab_tpu_torch.parallel.video",
+    for name in ("ivclab_tpu_torch.cli", "ivclab_tpu_torch.version",
+                 "ivclab_tpu_torch.parallel.video",
                  "ivclab_tpu_torch.tools.bench", "ivclab_tpu_torch.tools.scaling",
                  "ivclab_tpu_torch.tools.motion_ab", "ivclab_tpu_torch.examples.ch4_video"):
         assert name in names

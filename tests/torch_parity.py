@@ -137,3 +137,44 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device (run on the GPU machine)")
     return torch.device("cuda", 0)
+
+
+# The positional arguments of ops/bitpack.py::decode_blocks_hot, by name.
+WALK_ARGS = ("local", "counts", "lj", "first_code", "group_offset", "alpha_of_rank", "min_len",
+             "esc_rank", "max_syms", "raw_bits", "max_len")
+
+
+def captured_walks(monkeypatch, device="cpu") -> dict:
+    """The arguments of the two walks that decoding a 128x256 8-frame GOP's
+    IVC1 container runs: the MV streams first, then the residual streams."""
+    from ivclab_tpu_torch import FusedVideoCodec
+    from ivclab_tpu_torch.models import fastvideo as tfv
+    from ivclab_tpu_torch.utils import fixtures
+
+    y = luma(fixtures.video("bench", 8, (128, 256)))
+    codec = FusedVideoCodec(1.0, device=device).train(y[:2])
+    blob = codec.encode_to_container(y)
+    calls = []
+    real = tfv.decode_blocks_hot
+
+    def spy(*args):
+        calls.append(dict(zip(WALK_ARGS, args)))
+        return real(*args)
+
+    monkeypatch.setattr(tfv, "decode_blocks_hot", spy)
+    _, ok = FusedVideoCodec.decode_from_container(blob, device=device)
+    assert bool(ok) and len(calls) == 2
+    return {"mv": calls[0], "residual": calls[1]}
+
+
+def walk(fn, c):
+    """``fn`` (a walk of the port) on the arguments ``c``, named as in ``WALK_ARGS``."""
+    return fn(*(c[k] for k in WALK_ARGS))
+
+
+def port_args(c, device="cpu") -> dict:
+    """The arguments as the port takes them: tensors on ``device`` (words as
+    int64) and ints."""
+    return {k: to_torch(v).to(device) if isinstance(v, np.ndarray) else v for k, v in c.items()}
+
+
