@@ -53,9 +53,9 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    ``container_from_packed``'s and decode within 1e-2 (two decode walk
    launches a GOP); counts the band kernel's launches over that run and
    times the sharded step against the fused encode+pack;
-7. the intra codec at full width on CUDA (it runs no hand-written kernel;
-   its stages are plain PyTorch and the C++ entropy engine, which must be
-   built): (a) the ch3 point, trained on lena_small and coding lena at
+7. the intra codec at full width on CUDA (its decodes run the canonical
+   walk kernel, exactly one launch each; its other stages are plain
+   PyTorch and the C++ entropy engine, which must be built): (a) the ch3 point, trained on lena_small and coding lena at
    q=0.15, within the JAX golden bounds and at the CPU port's bpp; (b) lena
    tiled to 1088x1920 RGB at q=1.0, trained on itself: container bytes equal
    the CPU port's (or every differing symbol is a printed rounding tie), the
@@ -71,13 +71,15 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
 9. the per-frame adaptive video codec at full width on CUDA: (a)
    ``VideoCodec.encode_to_container`` (per-frame policy) of phase 4's 8
    frames, decoded on the card within 1e-2 of the encoder's chain, PSNR-Y
-   above 28 dB, exactly 7 whole-frame kernel launches; (b) the same for
+   above 28 dB, exactly 7 whole-frame kernel launches and 1 + T = 9
+   canonical walk launches in the decode; (b) the same for
    the adaptive policy, whose bits exceed (a)'s by exactly the codebook
    charge; (c) the CPU port's bytes on 3 frames equal the card's (or every
    differing symbol is a printed motion near-tie or rounding tie), and the
    card's bytes decode on the CPU within 1e-2; (d) three RGB frames of the
    facade ``encode_decode`` per policy, every blob decoded by
-   ``decode_frame_payload`` within 1e-2, one launch per P-frame; (e) warm
+   ``decode_frame_payload`` within 1e-2, one launch per P-frame, one
+   canonical walk a blob's residual and one its MV; (e) warm
    medians of the container encode, the device-resident decode and the
    pipelined sequence coder, the encode's stages, and one profile each of
    the encode and the decode; (f) a codec at search range 8: 3 frames
@@ -113,7 +115,8 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    ``tools/dryrun.py::dryrun_multichip(8, "cuda")`` on a 2x4 mesh; each
    card run's decode walk launches equal to what its steps imply (one a
    fused GOP's decode-check, two a container decode, none for the
-   adaptive codec);
+   adaptive codec), and its canonical walk launches (1 + T an adaptive
+   container's decode-check, none for the fused codec and the facade);
 13. the lab's chapter examples and the scaling tool on the card, in
    process: the twins ``ivclab_tpu_torch.examples.ch1_basics``, ``ch2_entropy``,
    ``ch3_intra`` and ``ch4_video --quick --frames 3`` (their lines and wall
@@ -132,7 +135,8 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    28 dB (checked inside it), PSNR-Y within 0.01 dB of phase 4's and the
    payload bits equal to phase 4's, the adaptive container bytes equal to
    phase 9(a)'s, and exactly the ``me_kernel`` launches its steps imply
-   (365) and decode walk launches (48); then the host syncs of one warm
+   (365), decode walk launches (48) and canonical walk launches (18, two
+   adaptive decodes); then the host syncs of one warm
    round trip, each at its ``file:line``
    (``torch.cuda.set_sync_debug_mode("warn")``), which must be none, and a
    profile of 3 sync-free round trips (device ms, launches, busy share);
@@ -146,7 +150,25 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    refused; the kernel's device time on the residual walk beside
    ``decode_walk_bound`` (charged from the walk's own bits a block) and
    the plain walk's time; a profile
-   of one 1080p ``decode_gop`` (device ms, launches).
+   of one 1080p ``decode_gop`` (device ms, launches);
+16. the canonical walk kernel (``csrc/decode_walk.cu``, ``canon_walk_kernel``,
+   ``decode_blocks_device``) against its plain PyTorch version on the card,
+   bit for bit: phase 7b's 1088x1920 RGB intra stream, phase 9a's MV
+   section and 8 residual sections (captured at the call sites) and seeded
+   corrupt streams from ``fixtures.canon_walk_streams`` (negative offsets
+   and offsets whose walk crosses 2^31, reads past the stream, counts
+   below 0 and past ``max_syms``, random tables whose ranks wrap and clamp
+   and whose lengths pass 32, the skewed 32-bit code, 9,000 and 70,000
+   symbols, a partial last CTA); bad arguments refused by the wrapper and
+   by the C entry; the kernel's device time on the intra walk and on a
+   residual frame beside ``utils/timing.py::canon_walk_bound`` and the
+   plain walk's time; then ``IntraCodec.decode_from_container``,
+   ``IntraCodec.decode_device`` and ``VideoCodec.decode_from_container(...,
+   return_device=True)`` at 1080p: wall ms, a profile (launches, device
+   ms, busy share), their canonical walk launches (1, 1 and 1 + T) and
+   their host syncs at their ``file:line``, of which only the intra
+   container decode's ``bool(ok)`` (JAX's ``decode_from_container`` reads
+   it too) may remain.
 
 The line before the last is a JSON list of the kernels with their launch
 counts over every main path above, times and bounds (the wide kernel's
@@ -360,8 +382,9 @@ def rounding_ties(x_gpu, x_cpu, codec_gpu, codec_cpu):
 INTRA_REPS = 5  # timed runs per intra stage, after one warm-up
 
 
-def intra_phase(dev, card: str) -> None:
-    """Phase 7: the intra codec at full width on CUDA (see the module doc)."""
+def intra_phase(dev, card: str):
+    """Phase 7: the intra codec at full width on CUDA (see the module doc).
+    Returns (b)'s codec, image and container for phase 16."""
     import numpy as np
     import torch
 
@@ -373,6 +396,7 @@ def intra_phase(dev, card: str) -> None:
     )
     from ivclab_tpu_torch.entropy.stats import pmf_from_histogram
     from ivclab_tpu_torch.models.intracodec import reference_state
+    from ivclab_tpu_torch.ops import bitpack
     from ivclab_tpu_torch.ops.transform import symbol_histogram
     from ivclab_tpu_torch.runtime import native
     from ivclab_tpu_torch.utils import fixtures
@@ -419,9 +443,18 @@ def intra_phase(dev, card: str) -> None:
         check(ties and all(t[-1] < TIE_TOL for t in ties),
               "CUDA and CPU intra bytes differ by more than rounding ties")
     ref, _, bits_b, bpp_b = g.encode_decode(hd, return_bpp=True)
+    torch.cuda.synchronize()
+    n0 = bitpack.CANON_LAUNCHES
     rec = IntraCodec.decode_from_container(blob, device=dev)
+    torch.cuda.synchronize()
+    n1 = bitpack.CANON_LAUNCHES
     rec_cpu = IntraCodec.decode_from_container(blob, device="cpu")
     full, _, _ = g.encode_decode(hd, verify_entropy=True)
+    torch.cuda.synchronize()
+    walks = (n1 - n0, bitpack.CANON_LAUNCHES - n1)
+    print(f"[intra] (b) canonical walk launches: {walks[0]} in decode_from_container, "
+          f"{walks[1]} in encode_decode(verify_entropy=True) (want 1 and 1)")
+    check(walks == (1, 1), f"intra decodes launched the canonical walk {walks} times, not (1, 1)")
     check(rec.is_cuda and tuple(rec.shape) == hd.shape and bool(torch.isfinite(rec).all()),
           "bad 1080p intra recon")
     err = float((rec - ref).abs().max())
@@ -440,7 +473,9 @@ def intra_phase(dev, card: str) -> None:
     g2 = IntraCodec(2.0, device=dev)
     g2.train_huffman_from_image(gray, is_source_rgb=False)
     blob2 = g2.encode_to_container(gray, is_source_rgb=False)
+    n0 = bitpack.CANON_LAUNCHES
     rec2 = IntraCodec.decode_from_container(blob2, device=dev)
+    check(bitpack.CANON_LAUNCHES - n0 == 1, "the gray container decode did not walk once")
     psnr_c = float(calc_psnr(gray, rec2))
     print(f"[intra] (c) 1536x2048 gray q=2.0: {len(blob2)} bytes, container round trip "
           f"PSNR {psnr_c:.4f} dB")
@@ -505,6 +540,7 @@ def intra_phase(dev, card: str) -> None:
           f"longest unlimited code {int(raw.max())} bits: "
           + ", ".join(f"{name} {ms:.3f} ms" for name, ms in host_ms.items())
           + f" (median of {INTRA_REPS}, host; {card})")
+    return g, hd, blob
 
 
 def encoder_chain(codec, y_dev):
@@ -576,16 +612,16 @@ def adaptive_divergence(y3, codec_g, codec_c) -> bool:
 ADAPTIVE_REPS = 5  # timed runs per adaptive entry point, after one warm-up
 
 
-def adaptive_phase(dev, card: str, y, rgb) -> tuple[int, int]:
+def adaptive_phase(dev, card: str, y, rgb) -> tuple[int, bytes]:
     """Phase 9: ``VideoCodec`` at full width on CUDA (see the module doc).
     Returns the whole-frame kernel launches of its main-path runs and the
-    per-frame policy's container bytes of (a)."""
+    per-frame policy's container of (a)."""
     import numpy as np
     import torch
 
     from ivclab_tpu_torch import VideoCodec, calc_psnr
     from ivclab_tpu_torch.models import videocodec as vc
-    from ivclab_tpu_torch.ops import motion
+    from ivclab_tpu_torch.ops import bitpack, motion
     from ivclab_tpu_torch.ops.transform import cap_slice
     from ivclab_tpu_torch.ops.zerorun import BLOCK_CAP
     from ivclab_tpu_torch.runtime.container import AdaptiveVideoPayload
@@ -605,7 +641,9 @@ def adaptive_phase(dev, card: str, y, rgb) -> tuple[int, int]:
         torch.cuda.synchronize()
         n = motion.LAUNCHES
         launches += n
+        n0 = bitpack.CANON_LAUNCHES
         rec, oks = VideoCodec.decode_from_container(blob, return_device=True, device=dev)
+        walks = bitpack.CANON_LAUNCHES - n0
         chain = encoder_chain(codec, y_dev)[6]
         err = float((rec - chain).abs().max())
         last = float((chain[-1] - codec.decoder_recon).abs().max())
@@ -618,7 +656,9 @@ def adaptive_phase(dev, card: str, y, rgb) -> tuple[int, int]:
               f"q=1.0 sr=4: {len(blob)} container bytes{jax_ref}, {p.payload_bits} "
               f"payload bits, frame bits {[int(b) for b in p.frame_bits]}; decode on the card vs "
               f"the encoder's chain max abs {err:.3e}, ok {bool(oks.all())}; PSNR-Y {ps:.4f} dB; "
-              f"whole-frame kernel launches {n} in encode_to_container")
+              f"whole-frame kernel launches {n} in encode_to_container, canonical walk "
+              f"launches {walks} in decode_from_container (want 1 + T = {1 + T})")
+        check(walks == 1 + T, f"{policy}: the decode walked {walks} times, not {1 + T}")
         check(bool(oks.all()) and err < 1e-2 and last < 1e-2,
               f"{policy}: adaptive container decode mismatch {err}")
         check(ps > 28.0, f"{policy}: PSNR-Y collapsed: {ps}")
@@ -643,7 +683,9 @@ def adaptive_phase(dev, card: str, y, rgb) -> tuple[int, int]:
     if blob_g != blob_c:
         check(adaptive_divergence(y3, cg, cc), "CUDA and CPU adaptive bytes differ by more than "
                                                "motion near-ties and rounding ties")
+    n0 = bitpack.CANON_LAUNCHES
     rec_g = VideoCodec.decode_from_container(blob_g, return_device=True, device=dev)[0]
+    check(bitpack.CANON_LAUNCHES - n0 == 4, "the 3-frame decode did not walk 1 + 3 times")
     rec_c = VideoCodec.decode_from_container(blob_g, device="cpu")
     gap = float(np.abs(rec_c - rec_g.cpu().numpy()).max())
     print(f"[adaptive] (c) the CPU decode of the CUDA bytes vs the CUDA decode: max abs {gap:.3e}")
@@ -652,14 +694,16 @@ def adaptive_phase(dev, card: str, y, rgb) -> tuple[int, int]:
     # (d) the facade, three RGB frames per policy
     for policy in ("per-frame", "adaptive", "first-p-frame"):
         codec = VideoCodec(1.0, codebook_policy=policy, device=dev)
-        prev, per_frame, info = None, [], []
+        prev, per_frame, info, walks = None, [], [], []
         for t in range(3):
             torch.cuda.synchronize()
             motion.LAUNCHES = 0
             out, blob, bits = codec.encode_decode(rgb[t], frame_num=t)
             torch.cuda.synchronize()
             per_frame.append(motion.LAUNCHES)
+            n0 = bitpack.CANON_LAUNCHES
             dec = VideoCodec.decode_frame_payload(blob, prev, device=dev)
+            walks.append(bitpack.CANON_LAUNCHES - n0)
             err = float((dec - codec.decoder_recon).abs().max())
             check(err < 1e-2, f"facade {policy} frame {t}: blob decode mismatch {err}")
             check(out.device.type == dev.type and out.dtype == torch.uint8
@@ -670,8 +714,10 @@ def adaptive_phase(dev, card: str, y, rgb) -> tuple[int, int]:
             prev = dec
         launches += sum(per_frame)
         print(f"[adaptive] (d) facade {policy} {W}x{H} RGB, 3 frames: {'; '.join(info)}; "
-              f"whole-frame launches per frame {per_frame}")
+              f"whole-frame launches per frame {per_frame}; canonical walk launches per "
+              f"blob decode {walks} (want [1, 2, 2]: the residual, and a P-frame's MV)")
         check(per_frame == [0, 1, 1], f"facade {policy}: launches {per_frame}, not [0, 1, 1]")
+        check(walks == [1, 2, 2], f"facade {policy}: walk launches {walks}, not [1, 2, 2]")
 
     # (e) timing and one profile
     codec = VideoCodec(1.0, device=dev)
@@ -741,7 +787,9 @@ def adaptive_phase(dev, card: str, y, rgb) -> tuple[int, int]:
     launches += n8
     c8_cpu = VideoCodec(1.0, search_range=8, device="cpu")
     blob8_cpu = c8_cpu.encode_to_container(y3)
+    n0 = bitpack.CANON_LAUNCHES
     rec8 = VideoCodec.decode_from_container(blob8, return_device=True, device=dev)[0]
+    check(bitpack.CANON_LAUNCHES - n0 == 4, "the sr=8 decode did not walk 1 + 3 times")
     err8 = float((rec8 - encoder_chain(c8, y3_dev)[6]).abs().max())
     print(f"[adaptive] (f) search range 8, 3 frames: CUDA {len(blob8)} bytes, CPU "
           f"{len(blob8_cpu)} bytes, identical {blob8 == blob8_cpu}; whole-frame launches {n8}; "
@@ -752,7 +800,7 @@ def adaptive_phase(dev, card: str, y, rgb) -> tuple[int, int]:
     if blob8 != blob8_cpu:
         check(adaptive_divergence(y3, c8, c8_cpu), "CUDA and CPU bytes at search range 8 differ "
                                                    "by more than near-ties")
-    return launches, len(blobs["per-frame"])
+    return launches, blobs["per-frame"]
 
 
 def sharded_adaptive_phase(dev, card: str, y6) -> int:
@@ -966,11 +1014,11 @@ def run_cli(*argv) -> dict:
     return json.loads(buf.getvalue().strip().splitlines()[-1])
 
 
-def cli_phase(card: str) -> tuple[int, int, int, int, int]:
+def cli_phase(card: str) -> tuple[int, int, int, int, int, int]:
     """Phase 12: the CLI on the card, in process, each run against the same
     run with ``--device cpu``. Returns the (me_kernel frame, me_kernel band,
-    wide_kernel frame, wide_kernel band, decode walk) launches of its
-    main-path runs."""
+    wide_kernel frame, wide_kernel band, decode walk, canonical walk)
+    launches of its main-path runs."""
     import tempfile
     from pathlib import Path
 
@@ -981,27 +1029,35 @@ def cli_phase(card: str) -> tuple[int, int, int, int, int]:
     from ivclab_tpu_torch.tools.dryrun import dryrun_multichip
 
     tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_cli_"))
-    totals = [0, 0, 0, 0, 0]
+    totals = [0, 0, 0, 0, 0, 0]
 
-    def walked(label, want):
-        """Add the decode walk launches since the last reset; check them."""
+    def walked(label, want, canon_want, canon_before):
+        """Add the hot walk launches since the last reset and the canonical
+        walk launches since ``canon_before``; check them."""
         n = bitpack.WALK_LAUNCHES
+        c = bitpack.CANON_LAUNCHES - canon_before
         totals[4] += n
-        print(f"[cli] {label}: decode walk launches {n} (want {want})")
+        totals[5] += c
+        print(f"[cli] {label}: decode walk launches {n} (want {want}), canonical walk "
+              f"launches {c} (want {canon_want})")
         check(n == want, f"CLI {label}: the decode walk launched {n} times, not {want}")
+        check(c == canon_want, f"CLI {label}: the canonical walk launched {c} times, "
+                               f"not {canon_want}")
 
     def on_card(label, argv, want, walks):
         """One CLI run on the card (launches counted) and its CPU twin;
-        ``walks`` decode walk launches: one a fused GOP's decode-check, two
-        a container decode's."""
+        ``walks`` the (hot, canonical) decode walk launches: one hot walk a
+        fused GOP's decode-check, two a fused container decode's; 1 + T
+        canonical walks an adaptive GOP container's decode-check."""
         torch.cuda.synchronize()
         reset_launch_counts()
+        c0 = bitpack.CANON_LAUNCHES
         out = run_cli("--device", "cuda", *argv(tmp / f"{label}.cuda"))
         torch.cuda.synchronize()
         counts = launch_counts()
         for k in range(4):
             totals[k] += counts[k]
-        walked(label, walks)
+        walked(label, *walks, c0)
         ref = run_cli("--device", "cpu", *argv(tmp / f"{label}.cpu"))
         same = (tmp / f"{label}.cuda").read_bytes() == (tmp / f"{label}.cpu").read_bytes()
         print(f"[cli] {label}: {out.get('container_bytes')} bytes, stream == --device cpu "
@@ -1028,31 +1084,33 @@ def cli_phase(card: str) -> tuple[int, int, int, int, int]:
         want = (T if policy == "first-p-frame" else T - 1, 0, 0, 0)
         on_card(f"{policy} CIF T={T}", lambda p, policy=policy: [
             "--trace", *enc, str(p), "--frames", str(T), "--codebook-policy", policy], want,
-            1 if policy == "first-p-frame" else 0)
+            (1, 0) if policy == "first-p-frame" else (0, 1 + T))
     on_card(f"first-p-frame CIF T={T} sr=16", lambda p: [
-        "--trace", *enc, str(p), "--frames", str(T), "--search-range", "16"], (0, 0, T, 0), 1)
+        "--trace", *enc, str(p), "--frames", str(T), "--search-range", "16"], (0, 0, T, 0),
+        (1, 0))
     for policy, sr in (("first-p-frame", 0), ("per-frame", 0), ("per-frame", 16)):
         fused = policy == "first-p-frame"
         on_card(f"{policy} CIF T=3 sr={sr}", lambda p, policy=policy, sr=sr: [
             *enc, str(p), "--frames", "3", "--search-range", str(sr), "--codebook-policy",
-            policy], (0, 0, 3 if fused else 2, 0), 1 if fused else 0)
+            policy], (0, 0, 3 if fused else 2, 0), (1, 0) if fused else (0, 4))
     mesh_T = 16
     # the sharded fused path decodes each of its 2 GOPs from its container
     on_card(f"first-p-frame CIF T={mesh_T} --gop 8 mesh 2x1", lambda p: [
         "--trace", *enc, str(p), "--frames", str(mesh_T), "--gop", "8",
-        "--mesh-gop", "2", "--mesh-tile", "1"], (8, 14, 0, 0), 4)
+        "--mesh-gop", "2", "--mesh-tile", "1"], (8, 14, 0, 0), (4, 0))
     on_card(f"first-p-frame CIF T={mesh_T} --gop 8 mesh 2x1 sr=16", lambda p: [
         *enc, str(p), "--frames", str(mesh_T), "--gop", "8", "--mesh-gop", "2",
-        "--mesh-tile", "1", "--search-range", "16"], (0, 0, 8, 14), 4)
+        "--mesh-tile", "1", "--search-range", "16"], (0, 0, 8, 14), (4, 0))
 
     # decode-video and info on the card's sr=16 stream, against the CPU
     stream = tmp / f"first-p-frame CIF T={T} sr=16.cuda"
     torch.cuda.synchronize()
     reset_launch_counts()
+    c0 = bitpack.CANON_LAUNCHES
     dec = {"cuda": run_cli("--device", "cuda", "--trace", "decode-video", str(stream),
                            str(tmp / "dec-cuda.npy"))}
     torch.cuda.synchronize()
-    walked("decode-video sr=16 (one GOP container)", 2)
+    walked("decode-video sr=16 (one GOP container)", 2, 0, c0)
     dec["cpu"] = run_cli("--device", "cpu", "--trace", "decode-video", str(stream),
                          str(tmp / "dec-cpu.npy"))
     a, b = np.load(tmp / "dec-cuda.npy"), np.load(tmp / "dec-cpu.npy")
@@ -1073,11 +1131,12 @@ def cli_phase(card: str) -> tuple[int, int, int, int, int]:
     # rd-sweep --kind video: the facade, one whole-frame launch a P-frame
     torch.cuda.synchronize()
     reset_launch_counts()
+    c0 = bitpack.CANON_LAUNCHES
     sweep = run_cli("--device", "cuda", "rd-sweep", "--kind", "video", "--frames", "3")
     torch.cuda.synchronize()
     counts = launch_counts()
     totals[0] += counts[0]
-    walked("rd-sweep video (the adaptive codec)", 0)
+    walked("rd-sweep video (the adaptive codec's facade)", 0, 0, c0)
     sweep_cpu = run_cli("--device", "cpu", "rd-sweep", "--kind", "video", "--frames", "3")
     n_q = len(sweep["points"])
     print(f"[cli] rd-sweep video 3 frames: {n_q} points, launches {counts} (want "
@@ -1092,6 +1151,7 @@ def cli_phase(card: str) -> tuple[int, int, int, int, int]:
     # the multi-shard dry run, in process on the card: 2x4 mesh
     torch.cuda.synchronize()
     reset_launch_counts()
+    c0 = bitpack.CANON_LAUNCHES
     t0 = time.perf_counter()
     dryrun_multichip(8, "cuda")
     torch.cuda.synchronize()
@@ -1101,7 +1161,8 @@ def cli_phase(card: str) -> tuple[int, int, int, int, int]:
     print(f"[cli] dryrun_multichip(8, 'cuda'): passed in {time.perf_counter() - t0:.2f} s, "
           f"launches {counts}")
     check(counts[1] > 0, "dryrun_multichip launched no band search")
-    walked("dryrun_multichip (one GOP container decode)", 2)
+    # one fused GOP container (two hot walks), one 2-frame adaptive container
+    walked("dryrun_multichip (one container of each codec)", 2, 3, c0)
     return tuple(totals)
 
 
@@ -1206,10 +1267,12 @@ def bench_phase(card: str, psnr4: float, bits4, adaptive_bytes: int) -> tuple[in
     T, iters, repeats, gops = 8, 3, 3, 32  # bench.run's defaults
     torch.cuda.synchronize()
     reset_launch_counts()
+    c0 = bitpack.CANON_LAUNCHES
     run = bench.measure(device="cuda")
     torch.cuda.synchronize()
     counts = launch_counts()
     walks = bitpack.WALK_LAUNCHES
+    canon = bitpack.CANON_LAUNCHES - c0
     print(json.dumps(run.line))
     print(f"[bench] the line above: tools/bench.py --device cuda on {card}")
     # train searches one frame pair; every encode_gop and every adaptive
@@ -1222,18 +1285,24 @@ def bench_phase(card: str, psnr4: float, bits4, adaptive_bytes: int) -> tuple[in
     # stream, the repeats and the decode stage loop (the adaptive decode
     # walks full canonical codes, not this kernel)
     want_walks = 1 + iters + gops + repeats * iters + iters
+    # the adaptive half decodes its container twice (a warm decode, then the
+    # timed one): the MV section and each frame's residual
+    want_canon = 2 * (1 + T)
     d = run.line["detail"]
     payload_bits = int(run.frame_bits.sum())
     print(f"[bench] PSNR-Y {run.psnr_y:.4f} dB (phase 4: {psnr4:.4f}), payload bits "
           f"{payload_bits} (phase 4: {int(bits4.sum())}), adaptive container "
           f"{d['adaptive_1080p']['container_bytes']} bytes (phase 9a: {adaptive_bytes}), "
-          f"launches {counts} (want {want}), decode walk launches {walks} (want {want_walks})")
+          f"launches {counts} (want {want}), decode walk launches {walks} (want {want_walks}), "
+          f"canonical walk launches {canon} (want {want_canon})")
     check(abs(run.psnr_y - psnr4) <= 0.01, "the bench's PSNR-Y differs from phase 4's")
     check(payload_bits == int(bits4.sum()), "the bench's payload bits differ from phase 4's")
     check(d["adaptive_1080p"]["container_bytes"] == adaptive_bytes,
           "the bench's adaptive container differs from phase 9a's")
     check(counts == want, f"tools/bench.py launches {counts}, not {want}")
     check(walks == want_walks, f"tools/bench.py launched the walk {walks} times, not {want_walks}")
+    check(canon == want_canon, f"tools/bench.py launched the canonical walk {canon} times, "
+                               f"not {want_canon}")
 
     syncs = host_syncs(run.roundtrip)
     print(f"[bench] host syncs in one warm round trip: {sum(n for _, n in syncs)} at "
@@ -1358,6 +1427,183 @@ def walk_phase(dev, card: str, blob: bytes, decode_once):
     else:
         print("[walk] profile of one 1080p decode_gop: not measured (the profiler's trace "
               "holds no device event)")
+    return err, ms, plain, bound
+
+
+def canon_phase(dev, card: str, intra, adaptive_blob: bytes):
+    """Phase 16: the canonical walk kernel against its plain version on the
+    card, and the two container decodes that run it (see the module doc).
+    ``intra`` is phase 7b's (codec, image, container), ``adaptive_blob``
+    phase 9a's container. Returns (largest difference, the kernel's device
+    ms and the plain walk's ms on the intra walk, its bound)."""
+    import inspect
+
+    import numpy as np
+    import torch
+
+    from ivclab_tpu_torch import IntraCodec, VideoCodec
+    from ivclab_tpu_torch.models import intracodec, videocodec
+    from ivclab_tpu_torch.ops import bitpack
+    from ivclab_tpu_torch.utils import fixtures
+    from ivclab_tpu_torch.utils.timing import (
+        canon_walk_bound,
+        cuda_ms,
+        device_kernels,
+        host_syncs,
+        kernel_device_us,
+    )
+
+    g, hd, blob = intra
+    T = 8
+
+    # the walks of the two container decodes, as their call sites pass them
+    calls = []
+    real = bitpack.decode_blocks_device
+
+    def spy(*args, **kw):
+        calls.append(args[:5])
+        return real(*args, **kw)
+
+    intracodec.decode_blocks_device = videocodec.decode_blocks_device = spy
+    try:
+        IntraCodec.decode_from_container(blob, device=dev)
+        _, oks = VideoCodec.decode_from_container(adaptive_blob, return_device=True, device=dev)
+    finally:
+        intracodec.decode_blocks_device = videocodec.decode_blocks_device = real
+    check(bool(oks.all()) and len(calls) == 2 + T, "the decodes did not walk 1 + 1 + T times")
+    cases = [("phase 7b's 1088x1920 RGB intra stream", calls[0]),
+             ("phase 9a's MV section", calls[1])]
+    cases += [(f"phase 9a's frame {t} residual section", calls[2 + t]) for t in range(T)]
+
+    def on_card(c):
+        def t(k):
+            return torch.from_numpy(np.asarray(c[k]).astype(np.int64)).to(dev)
+
+        tables = (t("lj"), t("first_code"), t("group_offset"), t("sorted_syms"), c["min_len"],
+                  c["max_len"])
+        return (t("words"), t("offsets").to(torch.int32), t("counts").to(torch.int32), tables,
+                c["max_syms"])
+
+    for code, min_len, n_sym, max_syms in (("random", 1, 300, 40), ("random", 9, 300, 40),
+                                           ("random", 1, 70000, 37), ("skewed", 1, 300, 40),
+                                           ("laplacian", 1, 9000, 40)):
+        c = fixtures.canon_walk_streams(SEED + min_len + max_syms, B=32768, n_words=4096,
+                                        max_syms=max_syms, min_len=min_len, n_sym=n_sym,
+                                        code=code)
+        cases.append((f"corrupt streams, {code} tables, {c['sorted_syms'].size} symbols, "
+                      f"min_len {c['min_len']}, {max_syms} outputs a block", on_card(c)))
+    c = fixtures.canon_walk_streams(SEED, B=32700, n_words=4096)
+    cases.append(("corrupt streams, a partial last CTA", on_card(c)))
+
+    err = 0
+    for label, args in cases:
+        got = bitpack.decode_blocks_device_cuda(*args)
+        want = bitpack.decode_blocks_device_plain(*args)
+        torch.cuda.synchronize()
+        bad = int((got != want).sum())
+        err = max(err, int((got.long() - want.long()).abs().max()))
+        counts = args[2].long()
+        print(f"[canon] {label}: B={args[1].shape[0]}, {args[0].shape[0]} words, "
+              f"max_syms={args[4]}, max_len={args[3][5]}, counts mean "
+              f"{float(counts.clamp(min=0).float().mean()):.2f} max {int(counts.max())}: "
+              f"{bad} of {got.numel()} outputs differ")
+        check(bad == 0, f"canonical walk kernel != plain: {label}")
+
+    words, offs, counts, tables, max_syms = calls[0]
+    lj, fc, go, ss, min_len, max_len = tables
+    before = bitpack.CANON_LAUNCHES
+    for name, bad_args in (
+            ("max_len 0", (words, offs, counts, (lj, fc, go, ss, min_len, 0), max_syms)),
+            ("min_len 33", (words, offs, counts, (lj, fc, go, ss, 33, max_len), max_syms)),
+            ("32 first codes", (words, offs, counts, (lj, fc[:32], go, ss, min_len, max_len),
+                                max_syms)),
+            ("offsets on the CPU", (words, offs.cpu(), counts, tables, max_syms)),
+            ("an empty stream", (words[:0], offs, counts, tables, max_syms))):
+        try:
+            bitpack.decode_blocks_device_cuda(*bad_args)
+        except ValueError as e:
+            print(f"[canon] {name} refused: {e}")
+        else:
+            fail(f"the canonical walk kernel took {name}")
+    out = torch.empty((offs.shape[0], max_syms), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    lib = bitpack._walk_lib()
+    for name, ml, mn in (("max_len 33", 33, min_len), ("min_len -1", max_len, -1)):
+        rc = lib.ivc_decode_blocks_device(
+            words.data_ptr(), words.shape[0], offs.data_ptr(), counts.data_ptr(),
+            offs.shape[0], lj.data_ptr(), ml, fc.data_ptr(), go.data_ptr(), ss.data_ptr(),
+            ss.shape[0], mn, max_syms, out.data_ptr(), stream)
+        print(f"[canon] the C entry refuses {name}: cudaError {rc}")
+        check(rc == 1, f"the C entry took {name} (returned {rc}, not cudaErrorInvalidValue)")
+    check(bitpack.CANON_LAUNCHES == before, "a refused walk counted a launch")
+
+    _, bits = bitpack.decode_blocks_device_plain(*calls[0], return_bits=True)
+    bits = bits.cpu().numpy()
+    bound = canon_walk_bound(offs.cpu().numpy(), bits, words.shape[0], max_syms)
+    print(f"[canon] 1088x1920 RGB intra walk: {int(bits.sum())} bits over {offs.shape[0]} "
+          f"blocks, mean {float(bits.mean()):.2f}, largest {int(bits.max())}, {words.shape[0]} "
+          f"words, {max_syms} outputs a block")
+    timed = {"intra": calls[0], "adaptive frame 1 residual": calls[3]}
+    for args in timed.values():
+        for _ in range(3):
+            bitpack.decode_blocks_device_cuda(*args)
+            bitpack.decode_blocks_device_plain(*args)
+    results = {}
+    for label, args in timed.items():
+        kernel_us, plain_ms = [], []
+        for _ in range(2):  # alternate, kernel first then plain
+            kernel_us.append(float(np.mean(kernel_device_us(
+                lambda: bitpack.decode_blocks_device_cuda(*args), 20, "canon_walk_kernel"))))
+            plain_ms.append(cuda_ms(lambda: bitpack.decode_blocks_device_plain(*args), 3))
+        results[label] = (float(np.mean(kernel_us)) / 1e3, float(np.mean(plain_ms)))
+        _, b = bitpack.decode_blocks_device_plain(*args, return_bits=True)
+        bd = canon_walk_bound(args[1].cpu().numpy(), b.cpu().numpy(), args[0].shape[0], args[4])
+        print(f"[canon] {label} walk (B={args[1].shape[0]}, max_syms={args[4]}): kernel "
+              f"{kernel_us} us device (mean of 20 launches), plain {plain_ms} ms per call (CUDA "
+              f"events); bound {bd[0] * 1e3:.3f} us ({bd[1]}), "
+              f"{bd[0] / results[label][0]:.3f} of it ({card})")
+    ms, plain = results["intra"]
+
+    # the two decodes end to end: launches, device ms, busy share, host syncs
+    x, shape = g._prepare(hd, True)
+    dwords, _, doffs, dvalid, _ = g._encode_device(x)
+    src, first = inspect.getsourcelines(IntraCodec.decode_from_container)
+    ok_line = first + next(i for i, line in enumerate(src) if "bool(ok)" in line)
+    allowed = {f"ivclab_tpu_torch/models/intracodec.py:{ok_line}"}  # JAX's intracodec.py:317
+    decodes = {
+        "IntraCodec.decode_from_container 1088x1920 RGB":
+            lambda: IntraCodec.decode_from_container(blob, device=dev),
+        "IntraCodec.decode_device 1088x1920 RGB":
+            lambda: g.decode_device(dwords, doffs, dvalid, shape),
+        f"VideoCodec.decode_from_container(return_device=True) 1088x1920 T={T}":
+            lambda: VideoCodec.decode_from_container(adaptive_blob, return_device=True,
+                                                     device=dev),
+    }
+    for label, fn in decodes.items():
+        fn()
+        torch.cuda.synchronize()
+        n0 = bitpack.CANON_LAUNCHES
+        fn()
+        torch.cuda.synchronize()
+        walks = bitpack.CANON_LAUNCHES - n0
+        syncs = host_syncs(fn)
+        wall = median_ms(fn, 5)
+        kernels = device_kernels(fn)
+        canon_us = [us for name, us in kernels if "canon_walk_kernel" in name]
+        total = sum(us for _, us in kernels)
+        prof = (f"{len(kernels)} kernel launches, {total / 1e3:.3f} device ms (canon_walk_kernel "
+                f"{sum(canon_us) / 1e3:.4f} ms over {len(canon_us)}), busy share "
+                f"{total / 1e3 / wall:.3f}" if canon_us else
+                f"profile not measured (the trace held {len(kernels)} device events and no "
+                f"walk kernel)")
+        print(f"[canon] {label}: {wall:.3f} ms (warm, synchronised, median of 5); {prof}; "
+              f"canonical walk launches {walks}; host syncs {sum(n for _, n in syncs)} at "
+              f"{len(syncs)} places ({card})")
+        for where, n in syncs:
+            print(f"[canon]   {where} x{n}{' (JAX reads ok here too)' if where in allowed else ''}")
+        check(walks == (1 + T if "Video" in label else 1), f"{label}: {walks} walk launches")
+        check(all(where in allowed for where, _ in syncs), f"{label}: a host sync JAX lacks")
+        check("decode_device" not in label or not syncs, f"{label}: a host sync")
     return err, ms, plain, bound
 
 
@@ -1531,6 +1777,7 @@ def main() -> None:
     check(bg == bc, "CUDA and CPU container bytes differ")
     torch.cuda.synchronize()
     bitpack.WALK_LAUNCHES = 0
+    bitpack.CANON_LAUNCHES = 0  # counted over every main path, phases 3 to 14
     rg, okg = FusedVideoCodec.decode_from_container(bg, device=dev)
     torch.cuda.synchronize()
     walk_launches = bitpack.WALK_LAUNCHES
@@ -1823,7 +2070,7 @@ def main() -> None:
     print(f"[shard] ms samples: {json.dumps(times)}")
 
     # --------------------------------- 7. the intra codec at full width
-    intra_phase(dev, card)
+    intra = intra_phase(dev, card)
 
     # ---------------------------------------------------------- 8. profile
     profile_line(f"encode_gop 1920x1088 T={T}", lambda: codec.encode_gop(y_dev))
@@ -1831,7 +2078,8 @@ def main() -> None:
                  lambda: step(parallel.shard_frames(y6_dev, mesh)))
 
     # ------------------------- 9. the adaptive video codec at full width
-    adaptive_launches, adaptive_bytes = adaptive_phase(dev, card, y, rgb)
+    adaptive_launches, adaptive_blob = adaptive_phase(dev, card, y, rgb)
+    adaptive_bytes = len(adaptive_blob)
     launches += adaptive_launches
 
     # ------------------------ 10. the sharded adaptive encoder at full width
@@ -1841,7 +2089,7 @@ def main() -> None:
     library_phase(dev, card)
 
     # ------------------------------------------- 12. the CLI on the card
-    cli_whole, cli_band, wide_launches, wide_tile_launches, cli_walks = cli_phase(card)
+    cli_whole, cli_band, wide_launches, wide_tile_launches, cli_walks, cli_canon = cli_phase(card)
     launches += cli_whole
     walk_launches += cli_walks
     tile_launches += cli_band
@@ -1863,7 +2111,14 @@ def main() -> None:
         dev, card, blob,
         lambda: codec.decode_gop(p.words, p.offsets, p.counts, mvs, H, W, p.block_words, p.cap))
 
-    print(f"[smoke] phases 1-15 took {time.perf_counter() - t_start:.1f} s ({card})")
+    # --------------------------- 16. the canonical walk kernel against plain
+    canon_launches = bitpack.CANON_LAUNCHES
+    print(f"[smoke] canonical walk launches over the main paths (phases 3-14): {canon_launches}, "
+          f"{cli_canon} of them in the CLI phase")
+    check(canon_launches > 0, "no main path launched the canonical walk")
+    canon_err, canon_ms, canon_plain_ms, canon_bound = canon_phase(dev, card, intra, adaptive_blob)
+
+    print(f"[smoke] phases 1-16 took {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": [{
         "name": "motion_search",
         "route": "cuda",
@@ -1924,6 +2179,18 @@ def main() -> None:
         "bound_ms": walk_bound[0],
         "bound_by": walk_bound[1],
         "library_ms": None,  # no single PyTorch call decodes a canonical Huffman stream
+    }, {
+        "name": "decode_blocks_device",
+        "route": "cuda",
+        "source": "ivclab_tpu_torch/csrc/decode_walk.cu",
+        "replaces": "ivclab_tpu/ops/bitpack.py:87",  # an XLA while_loop, not a Pallas kernel
+        "launches": canon_launches,
+        "max_abs_err": canon_err,
+        "ms": canon_ms,  # the 1088x1920 RGB intra walk
+        "plain_ms": canon_plain_ms,
+        "bound_ms": canon_bound[0],
+        "bound_by": canon_bound[1],
+        "library_ms": None,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -55,6 +55,7 @@ from ivclab_tpu_torch.ops.zerorun import (
     zerorun_decode_stream,
 )
 from ivclab_tpu_torch.runtime import container as ct
+from ivclab_tpu_torch.utils.shape import upload
 
 _BOUND_BUCKET = 64
 _SAFETY_MARGIN = 20  # matches the course reference's +/-20 margin
@@ -141,8 +142,8 @@ class IntraCodec:
         """(table, reciprocal table) ``[C, 64]`` on the device, scan order."""
         if C not in self._qt_cache:
             qt = quant_table_zigzag(self.quantization_scale, max(C, 1))
-            self._qt_cache[C] = (torch.from_numpy(qt).to(self.device),
-                                 torch.from_numpy((1.0 / qt).astype(np.float32)).to(self.device))
+            self._qt_cache[C] = (upload(qt, self.device),
+                                 upload((1.0 / qt).astype(np.float32), self.device))
         return self._qt_cache[C]
 
     def _prepare(self, img, is_source_rgb: bool):

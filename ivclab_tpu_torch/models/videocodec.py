@@ -79,6 +79,7 @@ from ivclab_tpu_torch.runtime.container import (
     _numpy,
     packer_wmax,
 )
+from ivclab_tpu_torch.utils.shape import upload
 
 CODEBOOK_POLICIES = ("per-frame", "adaptive", "first-p-frame")
 
@@ -610,7 +611,7 @@ class VideoCodec:
         code = p.residual_codebook.canonical()
         views, tables = p.residual.device_views(dev), decode_tables(code, dev)
         ref = torch.as_tensor(recon_prev).to(device=dev, dtype=torch.float32)
-        qt = torch.from_numpy(quant_table_zigzag(p.quantization_scale, 1)).to(dev)
+        qt = upload(quant_table_zigzag(p.quantization_scale, 1), dev)
 
         mv = _decode_flat(p.mv, mv_views, mv_tables)[:n_real].reshape(hb, wb)
         rrec, ok = _decode_residual(code.lower_bound, views, tables,
@@ -667,12 +668,14 @@ class VideoCodec:
         """Reconstruct ``[T, H, W]`` float32 luma from an adaptive container
         alone, on ``device``.
 
-        Every upload comes first (each host-to-device copy synchronises),
-        then every frame's entropy decode and reconstruction is enqueued
-        with no host synchronisation, and the validity flags are read once
-        at the end. ``return_device=True`` returns ``(tensor [T, H, W] on the
-        device, ok flags)`` without the host copy; otherwise a numpy array,
-        and a corrupt frame raises ``ValueError``.
+        The sections and tables are uploaded without blocking the host,
+        every frame's entropy decode (one canonical walk kernel launch for
+        the MV section and one a frame on the card) and reconstruction is
+        enqueued with no host synchronisation, and the validity flags are
+        read once at the end. ``return_device=True`` returns ``(tensor [T,
+        H, W] on the device, ok flags)`` without the host copy or any host
+        synchronisation; otherwise a numpy array, and a corrupt frame raises
+        ``ValueError``.
         """
         p = AdaptiveVideoPayload.from_bytes(blob)
         T, H, W = p.shape
@@ -690,7 +693,7 @@ class VideoCodec:
         if any(s.block_counts.size < hp * wp for _, s in p.frames):
             raise ValueError("a frame section holds fewer blocks than the frame needs")
 
-        qt = torch.from_numpy(quant_table_zigzag(p.quantization_scale, 1)).to(dev)
+        qt = upload(quant_table_zigzag(p.quantization_scale, 1), dev)
         if M:
             mv_views = p.mv.device_views(dev)
             mv_tables = decode_tables(p.mv_codebook.canonical(), dev)

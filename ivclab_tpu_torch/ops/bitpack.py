@@ -6,11 +6,11 @@ also stands for the JAX package's ``pack_codes_grouped_dense2``), and the
 block-parallel decoders (``decode_blocks_device`` for full canonical codes,
 ``locals_from_groups`` + ``decode_blocks_hot`` for hot/escape codes).
 
-``decode_blocks_hot`` dispatches on the device of its stream: CPU tensors
-walk the plain PyTorch loop (``decode_blocks_hot_plain``), CUDA tensors
-the hand-written Hopper kernel of ``csrc/decode_walk.cu`` (or the call
-raises), where each thread walks one block to its own count, so no host
-read bounds the walk.
+Both decoders dispatch on the device of their stream: CPU tensors walk
+the plain PyTorch loops (``decode_blocks_device_plain``,
+``decode_blocks_hot_plain``), CUDA tensors the hand-written Hopper
+kernels of ``csrc/decode_walk.cu`` (or the call raises), where each
+thread walks one block to its own count, so no host read bounds the walk.
 
 Bitstream format: MSB-first within big-endian 32-bit words; bit ``k`` of
 the stream is bit ``31 - (k mod 32)`` of word ``k // 32``. Blocks are
@@ -38,12 +38,16 @@ import numpy as np
 import torch
 
 from ivclab_tpu_torch.entropy.codebook import MAX_CODE_LEN, CanonicalCode
+from ivclab_tpu_torch.utils.shape import upload
 
 MASK32 = 0xFFFFFFFF
 
 # Launches of the hot/escape walk kernel (``csrc/decode_walk.cu``) made in
 # this process by ``decode_blocks_hot_cuda``.
 WALK_LAUNCHES = 0
+# Launches of the canonical walk kernel (``csrc/decode_walk.cu``) made in
+# this process by ``decode_blocks_device_cuda``.
+CANON_LAUNCHES = 0
 
 
 def symbol_bit_layout(lens: torch.Tensor):
@@ -85,42 +89,77 @@ def pack_codes(codes: torch.Tensor, lens: torch.Tensor, bit_offsets: torch.Tenso
     return words[:num_words] & MASK32
 
 
+def _wrap32(x: torch.Tensor) -> torch.Tensor:
+    """int64 values taken modulo 2^32 into the int32 range, as int32 sums wrap."""
+    return ((x + (1 << 31)) & MASK32) - (1 << 31)
+
+
+def _stream_index(w: torch.Tensor, n: int) -> torch.Tensor:
+    """The JAX gather's rule for an index into an ``n``-word stream: a
+    negative index gets ``n`` added once, then it is clamped to [0, n - 1]."""
+    return torch.where(w < 0, w + n, w).clamp(0, n - 1)
+
+
 def bit_window32(words: torch.Tensor, bitpos: torch.Tensor) -> torch.Tensor:
     """The 32-bit window starting at each ``bitpos`` of an MSB-first stream.
 
-    Word indices past the stream clamp to its last word, as the JAX
-    gather's do.
+    As JAX's ``bit_window32`` computes it: ``bitpos`` is an int32 (wrapped
+    at 2^31), its word ``w = bitpos >> 5`` arithmetic, the second word
+    ``min(w + 1, n - 1)``, and both indices follow the gather's rule
+    (:func:`_stream_index`): a negative one counts from the stream's end,
+    and one outside the stream clamps to its first or last word.
     """
     n = words.shape[0]
+    bitpos = _wrap32(bitpos.to(torch.int64))
     w = bitpos >> 5
     sh = bitpos & 31
-    w1 = words[w.clamp(0, n - 1)]
-    w2 = words[(w + 1).clamp(0, n - 1)]
+    w1 = words[_stream_index(w, n)]
+    w2 = words[_stream_index((w + 1).clamp(max=n - 1), n)]
     return torch.where(sh == 0, w1, ((w1 << sh) | (w2 >> (32 - sh))) & MASK32)
 
 
 def decode_tables(code: CanonicalCode, device="cuda"):
     """Decoder tables for :func:`decode_blocks_device`: (lj_next_minus1 [32],
     first_code [33], group_offset [33], sorted_syms [n]) as int64 tensors on
-    ``device``, then min_len and max_len as ints."""
-    def t(a):
-        return torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)
+    ``device``, then min_len and max_len as ints. The uploads do not block
+    the host (:func:`upload`)."""
+    lj, fc, go, ss = (upload(np.asarray(a).astype(np.int64), device) for a in (
+        code.lj_next_minus1, code.first_code, code.group_offset, code.sorted_syms))
+    return lj, fc, go, ss, int(code.min_len), max(int(code.max_len), 1)
 
-    return (t(code.lj_next_minus1), t(code.first_code), t(code.group_offset),
-            t(code.sorted_syms), int(code.min_len), max(int(code.max_len), 1))
+
+def _canon_tables(tables, device):
+    """The tables as int64 tensors on ``device`` and min_len, max_len as ints,
+    checked for what both walks take: ``max_len`` in [1, 32] with at least
+    that many bounds, 33 first codes and group offsets, ``min_len`` in
+    [0, 32], at least one symbol."""
+    lj, fc, go, ss, min_len, max_len = tables
+    lj, fc, go, ss = (_as_i64(x, device).reshape(-1) for x in (lj, fc, go, ss))
+    min_len, max_len = int(min_len), int(max_len)
+    if not 1 <= max_len <= MAX_CODE_LEN or lj.shape[0] < max_len:
+        raise ValueError(f"max_len {max_len} outside [1, {MAX_CODE_LEN}] or past the "
+                         f"{lj.shape[0]} boundaries")
+    if fc.shape[0] != MAX_CODE_LEN + 1 or go.shape[0] != MAX_CODE_LEN + 1:
+        raise ValueError(f"first_code and group_offset need {MAX_CODE_LEN + 1} entries, got "
+                         f"{fc.shape[0]} and {go.shape[0]}")
+    if not 0 <= min_len <= MAX_CODE_LEN:
+        raise ValueError(f"min_len {min_len} outside [0, {MAX_CODE_LEN}]")
+    if ss.shape[0] < 1:
+        raise ValueError("sorted_syms is empty")
+    return lj, fc, go, ss, min_len, max_len
 
 
-def decode_blocks_device(words: torch.Tensor, block_bit_offsets: torch.Tensor,
-                         block_sym_counts: torch.Tensor, tables, max_syms: int,
-                         max_count: int | None = None) -> torch.Tensor:
-    """Decode every block in parallel from one packed stream.
+def decode_blocks_device_plain(words: torch.Tensor, block_bit_offsets: torch.Tensor,
+                               block_sym_counts: torch.Tensor, tables, max_syms: int,
+                               max_count: int | None = None, return_bits: bool = False):
+    """Decode every block in parallel from one packed stream, in plain PyTorch.
 
-    ``block_bit_offsets[b]``: block b's first bit; ``block_sym_counts[b]``:
-    the symbols to decode for it (at most ``max_syms`` are). ``tables``:
-    :func:`decode_tables`. ``max_count``, where the caller knows it from a
-    host copy of the counts, is their largest value (read from the device,
-    a synchronisation, when None). Returns ``[B, max_syms]`` int32 0-based
-    symbol indices, zero past each block's count.
+    ``block_bit_offsets[b]``: block b's first bit (an int32, as in JAX);
+    ``block_sym_counts[b]``: the symbols to decode for it (at most
+    ``max_syms`` are). ``tables``: :func:`decode_tables`. Returns ``[B,
+    max_syms]`` int32 0-based symbol indices, zero past each block's count,
+    equal to JAX's ``decode_blocks_device`` on every stream: bit positions
+    wrap at 2^31 and words are read by :func:`bit_window32`'s rule.
 
     All blocks advance one symbol per step. A code's length is ``min_len``
     plus the number of left-justified group boundaries its window exceeds.
@@ -129,41 +168,50 @@ def decode_blocks_device(words: torch.Tensor, block_bit_offsets: torch.Tensor,
     code's longest all equal the one at ``max_len`` (empty groups inherit
     it), so that one comparison counts ``32 - max_len`` times and the
     lengths, and the values, are the same for every window.
+
+    The loop runs to the largest count: ``max_count`` where the caller
+    knows it from a host copy of the counts, else read from the counts (a
+    synchronisation on a device); the kernel of
+    :func:`decode_blocks_device_cuda` needs no such bound. ``return_bits``
+    also returns each block's bits walked (``[B]`` int64, unwrapped), what
+    ``utils/timing.py::canon_walk_bound`` charges for its reads.
     """
-    lj, fc, go, ss, min_len, max_len = tables
     dev = words.device
+    lj, fc, go, ss, min_len, max_len = _canon_tables(tables, dev)
     words = words.reshape(-1).to(torch.int64) & MASK32
-    offs = block_bit_offsets.to(device=dev, dtype=torch.int64)
-    counts = block_sym_counts.to(device=dev, dtype=torch.int64)
-    lj, fc, go, ss = (x.to(dev) for x in (lj, fc, go, ss))
+    bitpos = _wrap32(block_bit_offsets.to(device=dev, dtype=torch.int64).reshape(-1))
+    counts = block_sym_counts.to(device=dev, dtype=torch.int64).reshape(-1)
     lj_head = lj[: max_len - 1]
     lj_tail = lj[max_len - 1]
     tail_weight = MAX_CODE_LEN - max_len
     n_sym = ss.shape[0]
-    B = offs.shape[0]
+    B = bitpos.shape[0]
 
     out = torch.zeros((B, max_syms), dtype=torch.int32, device=dev)
+    bits = torch.zeros(B, dtype=torch.int64, device=dev)
     if max_count is None:
         max_count = int(counts.max()) if B else 0
     n_steps = min(max_count, max_syms) if B else 0
-    bitpos = offs
+    if n_steps > 0 and words.shape[0] == 0:
+        raise ValueError("an empty stream has no words to walk")
     for i in range(n_steps):
         win = bit_window32(words, bitpos)
         L = min_len + (win[:, None] > lj_head[None, :]).sum(dim=1)
         if tail_weight:
             L = L + tail_weight * (win > lj_tail)
-        # u32 shift: amounts past 31 (lengths past 32) give 0
-        code_val = torch.where(L <= 32, win >> (32 - L).clamp(0, 31), 0)
+        # u32 shift: amounts of 32 and more (lengths 0 and past 32) give 0
+        code_val = torch.where((L >= 1) & (L <= 32), win >> (32 - L).clamp(0, 31), 0)
         Lc = L.clamp(max=MAX_CODE_LEN)  # the JAX gathers clamp their index
         d = (code_val - fc[Lc]) & MASK32
         rank = torch.where(d >= 1 << 31, d - (1 << 32), d)  # u32 -> int32
-        idx = go[Lc] + rank
-        idx = ((idx + (1 << 31)) & MASK32) - (1 << 31)  # int32 wrap, as in JAX
+        idx = _wrap32(go[Lc] + rank)  # int32 wrap, as in JAX
         sym = ss[idx.clamp(0, n_sym - 1)]
         active = i < counts
         out[:, i] = torch.where(active, sym, 0).to(torch.int32)
-        bitpos = torch.where(active, bitpos + L, bitpos)
-    return out
+        step = torch.where(active, L, 0)
+        bitpos = _wrap32(bitpos + step)
+        bits += step
+    return (out, bits) if return_bits else out
 
 
 def _next_pow2(n: int) -> int:
@@ -362,6 +410,10 @@ def bind(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.ivc_decode_blocks_hot.argtypes = [vp, i, i, vp, vp, i, vp, vp, i, vp, i, i, i, i, i,
                                           vp, vp]
     lib.ivc_decode_blocks_hot.restype = i
+    ll = ctypes.c_longlong
+    lib.ivc_decode_blocks_device.argtypes = [vp, ll, vp, vp, i, vp, i, vp, vp, vp, ll, i, i, vp,
+                                             vp]
+    lib.ivc_decode_blocks_device.restype = i
     return lib
 
 
@@ -445,3 +497,71 @@ def decode_blocks_hot(local: torch.Tensor, block_sym_counts: torch.Tensor, lj, f
     walk = decode_blocks_hot_cuda if local.is_cuda else decode_blocks_hot_plain
     return walk(local, block_sym_counts, lj, first_code, group_offset, alpha_of_rank, min_len,
                 esc_rank, max_syms, raw_bits, max_len)
+
+
+def decode_blocks_device_cuda(words: torch.Tensor, block_bit_offsets: torch.Tensor,
+                              block_sym_counts: torch.Tensor, tables, max_syms: int
+                              ) -> torch.Tensor:
+    """Launch the Hopper canonical walk kernel (``csrc/decode_walk.cu``):
+    what :func:`decode_blocks_device_plain` computes, one thread per block,
+    each walking to its own count.
+
+    ``words`` (the stream, any shape, 32-bit words in any integer type),
+    ``block_bit_offsets`` and ``block_sym_counts`` (``[B]`` each) must be
+    CUDA tensors on one device, and the tables (:func:`decode_tables`)
+    tensors there or host arrays, with what :func:`decode_blocks_device_plain`
+    takes: ``max_len`` in [1, 32], 33 first codes and group offsets,
+    ``min_len`` in [0, 32], at least one symbol, and a stream of at least one
+    word. Raises on anything else and on a launch error. Runs on the current stream without synchronising.
+    """
+    global CANON_LAUNCHES
+    if not words.is_cuda:
+        raise ValueError(f"needs a CUDA stream tensor, got one on {words.device}")
+    dev = words.device
+    B = block_bit_offsets.reshape(-1).shape[0]
+    for name, x in (("block_bit_offsets", block_bit_offsets),
+                    ("block_sym_counts", block_sym_counts)):
+        if x.device != dev or x.dim() != 1 or x.shape[0] != B:
+            raise ValueError(f"{name} must be [{B}] on {dev}, got {tuple(x.shape)} on {x.device}")
+    lj, fc, go, ss, min_len, max_len = _canon_tables(tables, dev)
+    if int(max_syms) < 0:
+        raise ValueError(f"max_syms {max_syms} < 0")
+    words = words.reshape(-1).to(torch.int64).contiguous()
+    out = torch.empty((B, int(max_syms)), dtype=torch.int32, device=dev)
+    if out.numel() == 0:
+        return out
+    if words.shape[0] == 0:
+        raise ValueError("an empty stream has no words to walk")
+    offs = block_bit_offsets.to(torch.int32).contiguous()
+    counts = block_sym_counts.to(torch.int32).contiguous()
+    lj, fc, go, ss = (x.contiguous() for x in (lj, fc, go, ss))
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = _walk_lib().ivc_decode_blocks_device(
+        words.data_ptr(), words.shape[0], offs.data_ptr(), counts.data_ptr(), B, lj.data_ptr(),
+        max_len, fc.data_ptr(), go.data_ptr(), ss.data_ptr(), ss.shape[0], min_len,
+        int(max_syms), out.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"canonical walk kernel refused or failed (cudaError {rc}): B={B}, "
+                           f"{words.shape[0]} words, max_syms={max_syms}, max_len={max_len}, "
+                           f"min_len={min_len}, {ss.shape[0]} symbols")
+    CANON_LAUNCHES += 1
+    return out
+
+
+def decode_blocks_device(words: torch.Tensor, block_bit_offsets: torch.Tensor,
+                         block_sym_counts: torch.Tensor, tables, max_syms: int,
+                         max_count: int | None = None) -> torch.Tensor:
+    """Decode every block of one packed stream in parallel -> ``[B,
+    max_syms]`` int32 0-based symbol indices, zero past each block's count
+    (JAX's ``decode_blocks_device``).
+
+    CPU streams run :func:`decode_blocks_device_plain` (to ``max_count``
+    steps where given, else to the counts' largest); CUDA streams the
+    kernel through :func:`decode_blocks_device_cuda`, which needs no bound
+    and reads nothing back to the host.
+    """
+    if words.is_cuda:
+        return decode_blocks_device_cuda(words, block_bit_offsets, block_sym_counts, tables,
+                                         max_syms)
+    return decode_blocks_device_plain(words, block_bit_offsets, block_sym_counts, tables,
+                                      max_syms, max_count)

@@ -28,6 +28,8 @@ last bit rarely moves a scaled coefficient across k + 1/2.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -113,15 +115,22 @@ def rgb2gray(image) -> torch.Tensor:
     return (((x[..., 0] + x[..., 1]) + x[..., 2]) * float(np.float32(1 / 3)))[..., None]
 
 
+@functools.lru_cache(maxsize=None)
+def _offset(device: torch.device) -> torch.Tensor:
+    """The chroma offset on ``device``, uploaded once (an upload a call
+    would make the host wait for the card each time)."""
+    return torch.from_numpy(_YCBCR_OFFSET.copy()).to(device)
+
+
 def rgb2ycbcr(image) -> torch.Tensor:
     """RGB -> YCbCr: ``x @ M.T + (0, 128, 128)``."""
     x = _f32(image)
-    return _mat3(x, _RGB2YCBCR) + torch.from_numpy(_YCBCR_OFFSET).to(x.device)
+    return _mat3(x, _RGB2YCBCR) + _offset(x.device)
 
 
 def ycbcr2rgb(image) -> torch.Tensor:
     """YCbCr -> RGB with clip to [0, 255]."""
     x = _f32(image)
-    rgb = _mat3(x - torch.from_numpy(_YCBCR_OFFSET).to(x.device), _YCBCR2RGB)
+    rgb = _mat3(x - _offset(x.device), _YCBCR2RGB)
     return rgb.clamp(0.0, 255.0)
 

@@ -41,6 +41,8 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ivclab_tpu_torch.utils.shape import upload
+
 MAGIC = b"IVC1"
 VERSION = 1
 KIND_INTRA = 0
@@ -338,15 +340,16 @@ class GroupedSection:
 
     def device_views(self, device="cuda"):
         """(words_flat int64, block_bit_offsets int32, block_counts int32)
-        tensors on ``device``."""
+        tensors on ``device``, uploaded without blocking the host. The
+        offsets are cast to int32 as JAX's are: past 2^31 they wrap."""
         base = np.arange(self.group_word_counts.size, dtype=np.int64) * (
             self.words_per_group * 32
         )
         offs = np.repeat(base, self.group_size) + self.block_offsets.astype(np.int64)
         return (
-            torch.from_numpy(self.words.reshape(-1).astype(np.int64)).to(device),
-            torch.from_numpy(offs.astype(np.int32)).to(device),
-            torch.from_numpy(self.block_counts.astype(np.int32)).to(device),
+            upload(self.words.reshape(-1).astype(np.int64), device),
+            upload(offs.astype(np.int32), device),
+            upload(self.block_counts.astype(np.int32), device),
         )
 
 

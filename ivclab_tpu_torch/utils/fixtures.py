@@ -2,8 +2,8 @@
 
 A copy of ``ivclab_tpu/utils/fixtures.py`` (``image``, ``degraded``,
 ``video`` and ``video_1080p``): the same name, length and shape give the
-same pixels; ``walk_streams`` (corrupt entropy streams for the decode
-walk) is the port's own. The
+same pixels; ``walk_streams`` and ``canon_walk_streams`` (corrupt
+entropy streams for the two decode walks) are the port's own. The
 course reference validates against real images and sequences distributed
 out of band; these are reproducible stand-ins with natural-image-like
 statistics (multi-octave smooth value noise + edges + texture) and real
@@ -198,4 +198,82 @@ def walk_streams(seed: int, B: int = 512, LW: int = 4, max_syms: int = 40, min_l
         "max_syms": int(max_syms),
         "raw_bits": int(raw_bits),
         "max_len": int(max_len),
+    }
+
+
+def canon_walk_streams(seed: int, B: int = 512, n_words: int = 64, max_syms: int = 40,
+                       min_len: int = 1, n_sym: int = 300, code: str = "random") -> dict:
+    """A random word stream, block offsets and counts, and decoder tables
+    that take the canonical walk (``ops/bitpack.py::decode_blocks_device``)
+    through its edge cases.
+
+    Random words are corrupt codes; one word in eight is all ones, which
+    makes the longest codes. The block offsets fall in six bands: inside
+    the stream, past its end, in its last 64 words counted back from bit 0
+    (a negative word index counts from the stream's end), further below 0
+    (the index clamps to word 0), within 16 words below 2^31 (the int32 bit
+    position wraps during the walk) and at -2^31. Counts run from -2 to
+    past ``max_syms``.
+
+    ``code`` picks the tables: ``"random"``, random sorted bounds, first
+    codes and group offsets (the first four lengths get small offsets, so
+    middle ranks occur) over ``n_sym`` random symbols, with ``max_len`` 32,
+    so lengths reach ``min_len + 31`` (past 32 when ``min_len > 1``) and
+    ranks wrap past int32 and clamp; ``"skewed"``, the canonical code of a
+    40-symbol pmf ``2^-k``, whose longest codes are 32 bits;
+    ``"laplacian"``, the canonical code of an ``n_sym``-symbol Laplacian pmf
+    limited to 16 bits, where the walk compares only ``max_len`` bounds.
+
+    Returns the walk's arguments as numpy arrays in the JAX tables' types
+    (uint32 words, bounds and first codes; int32 offsets, counts, group
+    offsets and symbols) and ints (``min_len``, ``max_len``, ``max_syms``).
+    """
+    from ivclab_tpu_torch.entropy.codebook import build_canonical_code
+
+    rng = np.random.default_rng(seed)
+    bits = n_words * 32
+    band = rng.integers(0, 6, B)
+    offs = np.select(
+        [band == 0, band == 1, band == 2, band == 3, band == 4],
+        [rng.integers(0, bits, B), rng.integers(bits, bits + 4096, B),
+         rng.integers(-min(bits, 64 * 32), 0, B), rng.integers(-(2**31), -bits, B),
+         rng.integers(2**31 - 16 * 32, 2**31, B)],
+        -(2**31))
+    if code == "random":
+        first_code = rng.integers(0, 2**32, 33, dtype=np.uint64).astype(np.uint32)
+        group_offset = rng.integers(-(2**31), 2**31, 33, dtype=np.int64).astype(np.int32)
+        first_code[:4] = 0
+        group_offset[:4] = rng.integers(-2, n_sym, 4)
+        tables = {
+            "lj": np.sort(rng.integers(0, 2**32, 32, dtype=np.uint64)).astype(np.uint32),
+            "first_code": first_code,
+            "group_offset": group_offset,
+            "sorted_syms": rng.integers(-(2**31), 2**31, n_sym, dtype=np.int64).astype(np.int32),
+            "min_len": int(min_len),
+            "max_len": 32,
+        }
+    elif code in ("skewed", "laplacian"):
+        if code == "skewed":
+            pmf, limit = 2.0 ** -np.arange(40), 32
+        else:
+            pmf, limit = np.exp(-np.abs(np.arange(n_sym) - n_sym // 2) / 6.0) + 1e-9, 16
+        c = build_canonical_code(pmf / pmf.sum(), lower_bound=0, max_len=limit)
+        tables = {
+            "lj": np.asarray(c.lj_next_minus1, dtype=np.uint32),
+            "first_code": np.asarray(c.first_code, dtype=np.uint32),
+            "group_offset": np.asarray(c.group_offset, dtype=np.int32),
+            "sorted_syms": np.asarray(c.sorted_syms, dtype=np.int32),
+            "min_len": int(c.min_len),
+            "max_len": max(int(c.max_len), 1),
+        }
+    else:
+        raise ValueError(f"code {code!r} is none of 'random', 'skewed', 'laplacian'")
+    words = rng.integers(0, 2**32, n_words, dtype=np.uint64).astype(np.uint32)
+    words[rng.random(n_words) < 1 / 8] = 0xFFFFFFFF
+    return {
+        "words": words,
+        "offsets": offs.astype(np.int64).astype(np.int32),
+        "counts": rng.integers(-2, max_syms + 8, B).astype(np.int32),
+        **tables,
+        "max_syms": int(max_syms),
     }

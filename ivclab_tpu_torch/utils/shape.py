@@ -23,6 +23,24 @@ def as_tensor(x) -> torch.Tensor:
     return torch.from_numpy(np.array(x, copy=True))
 
 
+def upload(a, device) -> torch.Tensor:
+    """A copy of the numpy array ``a`` as a tensor on ``device``.
+
+    On a CUDA device the array is staged in pinned host memory and copied
+    without blocking: a copy from pageable memory makes the host wait for
+    everything queued on the card first. PyTorch's caching host allocator
+    keeps the staging buffer until the copy has run.
+    """
+    a = np.asarray(a)
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        return torch.from_numpy(np.array(a, order="C")).to(dev)
+    host = torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype,
+                       pin_memory=True)
+    host.numpy()[...] = a
+    return host.to(dev, non_blocking=True)
+
+
 @functools.lru_cache(maxsize=None)
 def zigzag_scan_positions(n: int = 8) -> tuple[tuple[int, int], ...]:
     """(row, col) positions of an n x n block in JPEG zig-zag scan order.

@@ -51,6 +51,34 @@ def decode_walk_bound(block_bits, LW: int, max_syms: int) -> tuple[float, str]:
     return nbytes / H100_HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def canon_walk_bound(block_offsets, block_bits, n_words: int, max_syms: int
+                     ) -> tuple[float, str]:
+    """(least ms, "bytes") for one canonical decode walk of an ``n_words``
+    int64 word stream on the H100.
+
+    ``block_offsets`` and ``block_bits`` hold each block's first bit and
+    its bits walked (``[B]``, as ``decode_blocks_device_plain(...,
+    return_bits=True)`` gives them), offsets inside the stream: the walk
+    must read the 32-byte sectors of the words those bits lie in, each
+    sector once however many blocks share it (the stream starts on a
+    32-byte boundary). Each block's int32 offset and count are read once and
+    its ``max_syms`` int32 outputs are written once. The code tables (a few
+    hundred bytes to a few KiB) and the walk's integer work, a few dozen
+    instructions per decoded symbol, are far below that."""
+    offs = np.asarray(block_offsets, dtype=np.int64).reshape(-1)
+    bits = np.asarray(block_bits, dtype=np.int64).reshape(-1)
+    walked = bits > 0
+    first = np.clip(offs[walked] >> 5, 0, n_words - 1) // 4
+    last = np.clip((offs[walked] + bits[walked] - 1) >> 5, 0, n_words - 1) // 4
+    n_sectors = -(-n_words // 4)
+    edge = np.zeros(n_sectors + 1, dtype=np.int64)
+    np.add.at(edge, first, 1)
+    np.add.at(edge, last + 1, -1)
+    sectors = int((np.cumsum(edge[:-1]) > 0).sum())
+    nbytes = sectors * 32 + offs.size * (8 + max_syms * 4)
+    return nbytes / H100_HBM_BYTES_PER_S * 1e3, "bytes"
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean ms per call of ``fn`` between two CUDA events around ``iters``
     calls (host enqueue included where it is the slower side)."""
@@ -65,18 +93,35 @@ def cuda_ms(fn, iters: int) -> float:
 
 
 def device_kernels(fn, iters: int = 1) -> list[tuple[str, float]]:
-    """(name, duration in us) of every device kernel that ``iters`` calls
-    of ``fn`` launch, from a ``torch.profiler`` trace."""
+    """(name, duration in us) of every device kernel (and copy) that
+    ``iters`` calls of ``fn`` launch, from a ``torch.profiler`` trace.
+
+    On the H100 a trace taken late in a process has come back without
+    some of the first device events of its session (7 to 24 of a decode's
+    uploads and kernels, an intra decode's walk among them). So each trace
+    opens with a lead-in, 32 small kernels and a spin kernel, and only the
+    events that start after the spin kernel's end are kept (all but the
+    spin kernel where the trace lost it too); with the lead-in, every trace
+    of a decode held the same events."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        lead = torch.zeros(1, device="cuda")
+        for _ in range(32):
+            lead.add_(1)
+        torch.cuda._sleep(100_000)  # a spin kernel, ~50 us at 1.98 GHz
+        torch.cuda.synchronize()
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    return [(e.name, e.time_range.elapsed_us()) for e in prof.events()
-            if e.device_type == DeviceType.CUDA]
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spins = [e for e in events if "spin_kernel" in e.name]
+    if spins:
+        start = max(e.time_range.end for e in spins)
+        events = [e for e in events if e.time_range.start >= start]
+    return [(e.name, e.time_range.elapsed_us()) for e in events if "spin_kernel" not in e.name]
 
 
 def event_device_us(fn, iters: int) -> list[float]:

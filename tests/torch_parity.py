@@ -178,3 +178,36 @@ def port_args(c, device="cpu") -> dict:
     return {k: to_torch(v).to(device) if isinstance(v, np.ndarray) else v for k, v in c.items()}
 
 
+
+
+def captured_canon_walks(monkeypatch, device="cpu") -> dict:
+    """The arguments of the canonical walks (``decode_blocks_device``) that
+    the decoders run at 128x256: a lena crop's RGB ``IntraCodec`` container
+    ("intra") and a 3-frame ``VideoCodec`` container (its MV section
+    "video mv", then each frame's residual section "video residual t").
+    Each is a dict: words, offsets, counts, tables, max_syms, max_count."""
+    from ivclab_tpu_torch import IntraCodec, VideoCodec
+    from ivclab_tpu_torch.models import intracodec as tic
+    from ivclab_tpu_torch.models import videocodec as tvc
+    from ivclab_tpu_torch.utils import fixtures
+
+    calls = []
+    real = tic.decode_blocks_device
+
+    def spy(words, offsets, counts, tables, max_syms, max_count=None):
+        calls.append({"words": words, "offsets": offsets, "counts": counts, "tables": tables,
+                      "max_syms": max_syms, "max_count": max_count})
+        return real(words, offsets, counts, tables, max_syms, max_count)
+
+    monkeypatch.setattr(tic, "decode_blocks_device", spy)
+    monkeypatch.setattr(tvc, "decode_blocks_device", spy)
+    img = np.ascontiguousarray(fixtures.image("lena")[:128, :256])
+    intra = IntraCodec(1.0, device=device)
+    intra.train_huffman_from_image(img)
+    IntraCodec.decode_from_container(intra.encode_to_container(img), device=device)
+    y = luma(fixtures.video("foreman", 3, (128, 256)))
+    blob = VideoCodec(1.0, device=device).encode_to_container(y)
+    _, oks = VideoCodec.decode_from_container(blob, return_device=True, device=device)
+    assert bool(oks.all()) and len(calls) == 5
+    names = ["intra", "video mv"] + [f"video residual {t}" for t in range(3)]
+    return dict(zip(names, calls))
