@@ -10,7 +10,8 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
 1. device and build: requires CUDA, prints the card's name and power
    limit, builds ``ivclab_tpu_torch/csrc/motion_search.cu`` and
    ``ivclab_tpu_torch/csrc/decode_walk.cu`` with nvcc (one process each,
-   started together) and checks that TF32 is off;
+   started together; ptxas's registers, shared memory and spills of every
+   kernel printed, none may spill) and checks that TF32 is off;
 2. kernel vs plain: the motion-search kernel against its plain PyTorch
    version on the card: exact on integer-valued and flat frames, and on
    float fixture frames every mismatch must be a verified near-tie; bit
@@ -146,7 +147,11 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    walk's call sites) and seeded corrupt streams from
    ``fixtures.walk_streams`` (lengths below 0 and past the table and 32,
    wrapped and clamped ranks, escapes, 32-bit advances, reads past the
-   stream, a 9,000-rank table, 37 outputs a block, 32,700 blocks); bad arguments are
+   stream, a 9,000-rank table, 37 outputs a block, 32,700 blocks) and on
+   the adversarial bound tables of ``fixtures.prefix_bounds`` (unsorted,
+   repeated, negative and >= 2^32 bounds, bounds inside the prefix table's
+   ranges and at their edges, ``min_len`` -3 and 20, ``max_len`` 1, 16 and
+   32, partial last warps and CTAs); bad arguments are
    refused; the kernel's device time on the residual walk beside
    ``decode_walk_bound`` (charged from the walk's own bits a block) and
    the plain walk's time; a profile
@@ -159,8 +164,9 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    and offsets whose walk crosses 2^31, reads past the stream, counts
    below 0 and past ``max_syms``, random tables whose ranks wrap and clamp
    and whose lengths pass 32, the skewed 32-bit code, 9,000 and 70,000
-   symbols, a partial last CTA); bad arguments refused by the wrapper and
-   by the C entry; the kernel's device time on the intra walk and on a
+   symbols, a partial last CTA) and the adversarial bound tables
+   (``max_len`` 1, 12, 16 and 32, ``min_len`` 0 to 20); bad arguments
+   refused by the wrapper and by the C entry; the kernel's device time on the intra walk and on a
    residual frame beside ``utils/timing.py::canon_walk_bound`` and the
    plain walk's time; then ``IntraCodec.decode_from_container``,
    ``IntraCodec.decode_device`` and ``VideoCodec.decode_from_container(...,
@@ -187,6 +193,13 @@ from concurrent.futures import ThreadPoolExecutor
 
 SEED = 20261016
 KERNEL_SOURCES = ("motion_search", "decode_walk")  # ivclab_tpu_torch/csrc/<name>.cu
+# the walks' adversarial bound tables (fixtures.prefix_bounds): (kind, min_len, max_len)
+HOT_ADVERSARIAL = [("unsorted", 1, 16), ("duplicate", 1, 16), ("wild", -3, 16),
+                   ("inside", 20, 16), ("clustered", 1, 32), ("edges", 1, 32), ("inside", -3, 1),
+                   ("wild", 20, 32)]
+CANON_ADVERSARIAL = [("unsorted", 1, 32), ("duplicate", 1, 32), ("wild", 20, 16), ("inside", 0, 1),
+                     ("clustered", 1, 32), ("edges", 3, 12), ("clustered", 20, 1),
+                     ("inside", 9, 32)]
 
 
 def fail(msg: str):
@@ -295,13 +308,13 @@ def reset_launch_counts():
 def profile_line(label: str, fn) -> None:
     """Phase 8: one call of ``fn`` under torch.profiler: device ms, kernel
     launches and the motion-search kernel's part."""
-    from ivclab_tpu_torch.utils.timing import device_kernels
+    from ivclab_tpu_torch.utils.timing import device_kernels, kernel_base_name
 
     kernels = device_kernels(fn)
     if not kernels:
         print(f"[profile] {label}: not measured (the profiler's trace holds no device event)")
         return
-    me = [us for name, us in kernels if "me_kernel" in name]
+    me = [us for name, us in kernels if kernel_base_name(name) == "me_kernel"]
     total = sum(us for _, us in kernels)
     check(bool(me), f"{label}: the profile holds no motion-search kernel")
     print(f"[profile] {label}: {len(kernels)} kernel launches, {total / 1e3:.3f} device ms; "
@@ -1339,6 +1352,7 @@ def walk_phase(dev, card: str, blob: bytes, decode_once):
         cuda_ms,
         decode_walk_bound,
         device_kernels,
+        kernel_base_name,
         kernel_device_us,
     )
 
@@ -1370,6 +1384,12 @@ def walk_phase(dev, card: str, blob: bytes, decode_once):
     c = fixtures.walk_streams(SEED, B=32700, n_ranks=9000, max_syms=37, raw_bits=12)
     cases.append(("corrupt streams, 9,000 ranks, 37 outputs a block, a partial last CTA",
                   on_card(c)))
+    for i, (kind, min_len, max_len) in enumerate(HOT_ADVERSARIAL):
+        seed = SEED + 100 + i
+        c = fixtures.walk_streams(seed, B=32700 + 32 * (i % 2), min_len=min_len, max_len=max_len,
+                                  lj=fixtures.prefix_bounds(kind, seed, n=32))
+        cases.append((f"adversarial bounds {kind!r}, min_len {min_len}, max_len {max_len}",
+                      on_card(c)))
 
     err = 0
     for label, args in cases:
@@ -1420,7 +1440,7 @@ def walk_phase(dev, card: str, blob: bytes, decode_once):
 
     kernels = device_kernels(decode_once)
     if kernels:
-        walk_us = sum(us for name, us in kernels if "walk_kernel" in name)
+        walk_us = sum(us for name, us in kernels if kernel_base_name(name) == "walk_kernel")
         total = sum(us for _, us in kernels)
         print(f"[walk] profile of one 1080p decode_gop: {len(kernels)} kernel launches, "
               f"{total / 1e3:.3f} device ms, walk_kernel {walk_us / 1e3:.4f} ms ({card})")
@@ -1450,6 +1470,7 @@ def canon_phase(dev, card: str, intra, adaptive_blob: bytes):
         cuda_ms,
         device_kernels,
         host_syncs,
+        kernel_base_name,
         kernel_device_us,
     )
 
@@ -1494,6 +1515,13 @@ def canon_phase(dev, card: str, intra, adaptive_blob: bytes):
                       f"min_len {c['min_len']}, {max_syms} outputs a block", on_card(c)))
     c = fixtures.canon_walk_streams(SEED, B=32700, n_words=4096)
     cases.append(("corrupt streams, a partial last CTA", on_card(c)))
+    for i, (kind, min_len, max_len) in enumerate(CANON_ADVERSARIAL):
+        seed = SEED + 200 + i
+        c = fixtures.canon_walk_streams(seed, B=32700 + 32 * (i % 2), n_words=4096,
+                                        min_len=min_len, max_len=max_len,
+                                        lj=fixtures.prefix_bounds(kind, seed, n=32))
+        cases.append((f"adversarial bounds {kind!r}, min_len {min_len}, max_len {max_len}",
+                      on_card(c)))
 
     err = 0
     for label, args in cases:
@@ -1589,7 +1617,7 @@ def canon_phase(dev, card: str, intra, adaptive_blob: bytes):
         syncs = host_syncs(fn)
         wall = median_ms(fn, 5)
         kernels = device_kernels(fn)
-        canon_us = [us for name, us in kernels if "canon_walk_kernel" in name]
+        canon_us = [us for name, us in kernels if kernel_base_name(name) == "canon_walk_kernel"]
         total = sum(us for _, us in kernels)
         prof = (f"{len(kernels)} kernel launches, {total / 1e3:.3f} device ms (canon_walk_kernel "
                 f"{sum(canon_us) / 1e3:.4f} ms over {len(canon_us)}), busy share "

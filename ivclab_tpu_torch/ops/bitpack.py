@@ -48,6 +48,9 @@ WALK_LAUNCHES = 0
 # Launches of the canonical walk kernel (``csrc/decode_walk.cu``) made in
 # this process by ``decode_blocks_device_cuda``.
 CANON_LAUNCHES = 0
+# The walk kernels' prefix table has 2^PREFIX_BITS entries (the
+# ``PREFIX_BITS`` of ``csrc/decode_walk.cu``); see :func:`prefix_table`.
+PREFIX_BITS = 10
 
 
 def symbol_bit_layout(lens: torch.Tensor):
@@ -132,9 +135,11 @@ def _canon_tables(tables, device):
     """The tables as int64 tensors on ``device`` and min_len, max_len as ints,
     checked for what both walks take: ``max_len`` in [1, 32] with at least
     that many bounds, 33 first codes and group offsets, ``min_len`` in
-    [0, 32], at least one symbol."""
+    [0, 32], at least one symbol. The bounds are taken modulo 2^32, as the
+    format's (and JAX's) uint32 tables hold them."""
     lj, fc, go, ss, min_len, max_len = tables
     lj, fc, go, ss = (_as_i64(x, device).reshape(-1) for x in (lj, fc, go, ss))
+    lj = lj & MASK32
     min_len, max_len = int(min_len), int(max_len)
     if not 1 <= max_len <= MAX_CODE_LEN or lj.shape[0] < max_len:
         raise ValueError(f"max_len {max_len} outside [1, {MAX_CODE_LEN}] or past the "
@@ -212,6 +217,53 @@ def decode_blocks_device_plain(words: torch.Tensor, block_bit_offsets: torch.Ten
         bitpos = _wrap32(bitpos + step)
         bits += step
     return (out, bits) if return_bits else out
+
+
+def prefix_table(bounds, weights, bits: int = PREFIX_BITS):
+    """The prefix table by which both walk kernels (``csrc/decode_walk.cu``)
+    count the boundaries a window exceeds, stated in plain PyTorch.
+
+    A window ``win`` in [0, 2^32) counts ``weights[k]`` for each boundary
+    ``bounds[k]`` (int64, any values: unsorted, repeated, negative or past
+    2^32) with ``win > bounds[k]``. Prefix ``p`` holds the windows [lo, hi)
+    = [p << s, (p + 1) << s), s = 32 - ``bits``. A boundary ``v`` flips its
+    compare between the windows v and v + 1, so over [lo, hi) the count is
+    constant, the weight of the boundaries below lo, unless some boundary
+    lies in [lo, hi - 2]: those are the prefix's inner boundaries, and a
+    window there adds the weight of those it exceeds. Returns (base
+    ``[2^bits]``, first ``[2^bits]``, count ``[2^bits]``, inner bounds
+    ``[m]``, inner weights ``[m]``) as int64 CPU tensors: prefix ``p``'s
+    inner boundaries are entries ``first[p]`` to ``first[p] + count[p] - 1``,
+    in the order of their index, as the kernels lay them out.
+    """
+    v = torch.as_tensor(bounds).to(torch.int64).reshape(-1).cpu()
+    w = torch.as_tensor(weights).to(torch.int64).reshape(-1).cpu()
+    s = 32 - bits
+    lo = torch.arange(1 << bits, dtype=torch.int64)[:, None] << s
+    hi = lo + (1 << s)
+    below = v[None, :] < lo
+    inner = (v[None, :] >= lo) & (v[None, :] <= hi - 2) & (w[None, :] != 0)
+    base = (below * w[None, :]).sum(dim=1)
+    count = inner.sum(dim=1)
+    first = torch.cumsum(count, 0) - count
+    _, k_of = torch.nonzero(inner, as_tuple=True)  # by prefix, then index
+    return base, first, count, v[k_of], w[k_of]
+
+
+def prefix_count(win: torch.Tensor, table) -> torch.Tensor:
+    """The weight of the boundaries each window exceeds, as the kernels
+    count it from a :func:`prefix_table`: the prefix's base, plus a compare
+    against each inner boundary of the window's prefix."""
+    base, first, count, inner_v, inner_w = table
+    bits = base.shape[0].bit_length() - 1
+    win = torch.as_tensor(win).to(torch.int64).cpu()
+    p = win >> (32 - bits)
+    past = base[p]
+    for j in range(int(count.max()) if count.numel() else 0):
+        k = (first[p] + j).clamp(max=max(inner_v.shape[0] - 1, 0))
+        hit = (j < count[p]) & (win > inner_v[k])
+        past = past + torch.where(hit, inner_w[k], 0)
+    return past
 
 
 def _next_pow2(n: int) -> int:

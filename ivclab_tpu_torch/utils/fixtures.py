@@ -161,7 +161,7 @@ def video_1080p(num_frames: int = 8) -> np.ndarray:
 
 def walk_streams(seed: int, B: int = 512, LW: int = 4, max_syms: int = 40, min_len: int = 1,
                  raw_bits: int = 24, max_len: int = 16, n_ranks: int = 5,
-                 esc_rank: int | None = None) -> dict:
+                 esc_rank: int | None = None, lj=None) -> dict:
     """Random hot/escape streams and decoder tables that take the decode
     walk (``ops/bitpack.py::decode_blocks_hot``) through its edge cases.
 
@@ -174,7 +174,8 @@ def walk_streams(seed: int, B: int = 512, LW: int = 4, max_syms: int = 40, min_l
     table land), so escapes are common; length 8 sends every code to the
     last rank, so with ``raw_bits`` 24 its escapes advance exactly 32
     bits. Streams of ``LW`` words are read past their end, and counts run
-    from -2 to past ``max_syms``.
+    from -2 to past ``max_syms``. ``lj`` replaces the bounds (int64, as
+    :func:`prefix_bounds` makes them; every other array is the same).
 
     Returns the walk's arguments as numpy arrays in the JAX tables' types
     (uint32 words, bounds and first codes; int32 counts, group offsets and
@@ -186,7 +187,7 @@ def walk_streams(seed: int, B: int = 512, LW: int = 4, max_syms: int = 40, min_l
     first_code[:4] = 0
     group_offset[:4] = rng.integers(-2, n_ranks, 4)
     first_code[8], group_offset[8] = 0, n_ranks - 1
-    return {
+    c = {
         "local": rng.integers(0, 2**32, (B, LW), dtype=np.uint64).astype(np.uint32),
         "counts": rng.integers(-2, max_syms + 8, B).astype(np.int32),
         "lj": np.sort(rng.integers(0, 2**32, 32, dtype=np.uint64)).astype(np.uint32),
@@ -199,10 +200,61 @@ def walk_streams(seed: int, B: int = 512, LW: int = 4, max_syms: int = 40, min_l
         "raw_bits": int(raw_bits),
         "max_len": int(max_len),
     }
+    if lj is not None:
+        c["lj"] = np.asarray(lj, dtype=np.int64)
+    return c
+
+
+# The kinds of :func:`prefix_bounds`.
+PREFIX_BOUND_KINDS = ("unsorted", "duplicate", "wild", "inside", "clustered", "edges")
+
+
+def prefix_bounds(kind: str, seed: int, n: int = 31, bits: int = 10) -> np.ndarray:
+    """``n`` adversarial code bounds (int64) for the decode walks' prefix
+    table (``ops/bitpack.py::prefix_table``) of ``2^bits`` prefixes, each
+    prefix p the windows [lo, hi) = [p, p + 1) << (32 - bits):
+
+    - ``"unsorted"``: random values below 2^32 - 1 in no order;
+    - ``"duplicate"``: four values, each repeated;
+    - ``"wild"``: negative values, 2^32 - 1 and values past 2^32 (which the
+      hot walk's int64 compares count always or never; the canonical walk
+      takes their low 32 bits), mixed with random ones;
+    - ``"inside"``: each bound strictly inside a random prefix's range
+      ([lo, hi - 2]), so every bound makes its prefix compare;
+    - ``"clustered"``: bounds inside the first prefix, where the zero
+      windows past a ``walk_streams`` block land, and inside the last,
+      where the all-ones words of ``canon_walk_streams`` land;
+    - ``"edges"``: lo - 1, lo, hi - 2 and hi - 1 of random prefixes, the
+      values at which the rule changes.
+    """
+    rng = np.random.default_rng(seed)
+    s = 32 - bits
+    span = 1 << s
+    lo = rng.integers(0, 1 << bits, n).astype(np.int64) << s
+    if kind == "unsorted":
+        v = rng.integers(0, 2**32 - 1, n, dtype=np.int64)
+    elif kind == "duplicate":
+        v = rng.choice(rng.integers(0, 2**32 - 1, 4, dtype=np.int64), n)
+    elif kind == "wild":
+        v = np.select([np.arange(n) % 4 == k for k in range(3)],
+                      [rng.integers(-(2**40), 0, n), np.full(n, 2**32 - 1, dtype=np.int64),
+                       rng.integers(2**32, 2**40, n)],
+                      rng.integers(0, 2**32 - 1, n, dtype=np.int64))
+    elif kind == "inside":
+        v = lo + rng.integers(0, span - 1, n)
+    elif kind == "clustered":
+        last = ((1 << bits) - 1) << s
+        v = np.where(np.arange(n) % 2 == 0, 0, last) + rng.integers(0, span - 1, n)
+    elif kind == "edges":
+        v = lo + np.array([-1, 0, span - 2, span - 1])[np.arange(n) % 4]
+    else:
+        raise ValueError(f"kind {kind!r} is none of {PREFIX_BOUND_KINDS}")
+    return rng.permutation(v).astype(np.int64)
 
 
 def canon_walk_streams(seed: int, B: int = 512, n_words: int = 64, max_syms: int = 40,
-                       min_len: int = 1, n_sym: int = 300, code: str = "random") -> dict:
+                       min_len: int = 1, n_sym: int = 300, code: str = "random",
+                       max_len: int = 32, lj=None) -> dict:
     """A random word stream, block offsets and counts, and decoder tables
     that take the canonical walk (``ops/bitpack.py::decode_blocks_device``)
     through its edge cases.
@@ -217,12 +269,16 @@ def canon_walk_streams(seed: int, B: int = 512, n_words: int = 64, max_syms: int
 
     ``code`` picks the tables: ``"random"``, random sorted bounds, first
     codes and group offsets (the first four lengths get small offsets, so
-    middle ranks occur) over ``n_sym`` random symbols, with ``max_len`` 32,
-    so lengths reach ``min_len + 31`` (past 32 when ``min_len > 1``) and
-    ranks wrap past int32 and clamp; ``"skewed"``, the canonical code of a
+    middle ranks occur) over ``n_sym`` random symbols, with ``max_len``
+    (default 32, so lengths reach ``min_len + 31``, past 32 when
+    ``min_len > 1``; below 32 the last compared bound weighs 32 -
+    ``max_len``) and ranks that wrap past int32 and clamp; ``"skewed"``, the canonical code of a
     40-symbol pmf ``2^-k``, whose longest codes are 32 bits;
     ``"laplacian"``, the canonical code of an ``n_sym``-symbol Laplacian pmf
     limited to 16 bits, where the walk compares only ``max_len`` bounds.
+
+    ``lj`` replaces the bounds (int64, as :func:`prefix_bounds` makes them;
+    every other array is the same).
 
     Returns the walk's arguments as numpy arrays in the JAX tables' types
     (uint32 words, bounds and first codes; int32 offsets, counts, group
@@ -250,7 +306,7 @@ def canon_walk_streams(seed: int, B: int = 512, n_words: int = 64, max_syms: int
             "group_offset": group_offset,
             "sorted_syms": rng.integers(-(2**31), 2**31, n_sym, dtype=np.int64).astype(np.int32),
             "min_len": int(min_len),
-            "max_len": 32,
+            "max_len": int(max_len),
         }
     elif code in ("skewed", "laplacian"):
         if code == "skewed":
@@ -270,10 +326,13 @@ def canon_walk_streams(seed: int, B: int = 512, n_words: int = 64, max_syms: int
         raise ValueError(f"code {code!r} is none of 'random', 'skewed', 'laplacian'")
     words = rng.integers(0, 2**32, n_words, dtype=np.uint64).astype(np.uint32)
     words[rng.random(n_words) < 1 / 8] = 0xFFFFFFFF
-    return {
+    c = {
         "words": words,
         "offsets": offs.astype(np.int64).astype(np.int32),
         "counts": rng.integers(-2, max_syms + 8, B).astype(np.int32),
         **tables,
         "max_syms": int(max_syms),
     }
+    if lj is not None:
+        c["lj"] = np.asarray(lj, dtype=np.int64)
+    return c

@@ -142,9 +142,27 @@ def event_device_us(fn, iters: int) -> list[float]:
     return out
 
 
+def kernel_base_name(name: str) -> str:
+    """A kernel's own name from the name a profiler trace gives it:
+    without its namespaces, template arguments, parameters and return type
+    (``void (anonymous namespace)::me_kernel<4>(float const*, ...)`` ->
+    ``me_kernel``), also from an Itanium-mangled name."""
+    if name.startswith("_Z"):  # _Z[N]<length><identifier>... up to E or I
+        i, last = 2 + (name[2:3] == "N"), name
+        while i < len(name) and name[i].isdigit():
+            j = i
+            while j < len(name) and name[j].isdigit():
+                j += 1
+            last, i = name[j:j + int(name[i:j])], j + int(name[i:j])
+        return last
+    head = name.replace("(anonymous namespace)::", "").split("(", 1)[0].split("<", 1)[0]
+    return head.rsplit("::", 1)[-1].split()[-1] if head.strip() else name
+
+
 def kernel_device_us(fn, iters: int, match: str) -> list[float]:
-    """Device durations in us of the kernels whose name contains ``match``
-    over ``iters`` calls of ``fn``, from a ``torch.profiler`` trace. On the
+    """Device durations in us of the kernels named ``match`` (their
+    :func:`kernel_base_name`) over ``iters`` calls of ``fn``, from a
+    ``torch.profiler`` trace. On the
     H100 a trace has come back without any device event, twice in a row in
     one process; so when two traces in turn hold none of the kernel, the
     calls are timed by :func:`event_device_us` instead, with a warning."""
@@ -152,7 +170,7 @@ def kernel_device_us(fn, iters: int, match: str) -> list[float]:
 
     for _ in range(2):
         kernels = device_kernels(fn, iters)
-        durations = [us for name, us in kernels if match in name]
+        durations = [us for name, us in kernels if kernel_base_name(name) == match]
         if durations:
             return durations
     warnings.warn(f"the profiler's traces hold {len(kernels)} device events and no {match!r}: "

@@ -352,7 +352,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     for name in ("ivclab_tpu_torch.cli", "ivclab_tpu_torch.version",
                  "ivclab_tpu_torch.parallel.video",
                  "ivclab_tpu_torch.tools.bench", "ivclab_tpu_torch.tools.scaling",
-                 "ivclab_tpu_torch.tools.motion_ab", "ivclab_tpu_torch.examples.ch4_video"):
+                 "ivclab_tpu_torch.tools.motion_ab", "ivclab_tpu_torch.tools.walk_ab",
+                 "ivclab_tpu_torch.examples.ch4_video"):
         assert name in names
     assert foreign == []
 

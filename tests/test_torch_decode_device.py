@@ -69,13 +69,41 @@ def i32(v: int) -> int:
     return ((v + (1 << 31)) & M32) - (1 << 31)
 
 
-def scalar_walk(c) -> tuple[np.ndarray, set, np.ndarray]:
+def canon_bounds(c) -> tuple[list[int], list[int]]:
+    """The bounds the port's walks compare and their weights: the first
+    ``max_len`` (taken modulo 2^32), the last of them weighing 32 -
+    ``max_len`` (it stands for the bounds past ``max_len``)."""
+    max_len = c["max_len"]
+    bounds = [int(v) & M32 for v in np.asarray(c["lj"], dtype=np.int64)[:max_len]]
+    return bounds, [1] * (max_len - 1) + [32 - max_len]
+
+
+def table_count(bounds, weights, bits=tbp.PREFIX_BITS):
+    """The kernels' count of the bound weight a window exceeds, in their
+    order: the prefix table's entry, then compares against that prefix's
+    inner bounds (``ops/bitpack.py::prefix_table``), in Python integers."""
+    base, first, count, inner_v, inner_w = (t.tolist() for t in tbp.prefix_table(
+        np.asarray(bounds, dtype=np.int64), np.asarray(weights, dtype=np.int64), bits))
+    shift = 32 - bits
+
+    def past(win: int) -> int:
+        p = win >> shift
+        return base[p] + sum(inner_w[k] for k in range(first[p], first[p] + count[p])
+                             if win > inner_v[k])
+    return past
+
+
+def scalar_walk(c, count=None) -> tuple[np.ndarray, set, np.ndarray]:
     """JAX's walk one block at a time in Python integers (all 31 bounds
     compared): its values, the edge cases it met on the way, and each
-    block's bits walked."""
+    block's bits walked. ``count`` (a window -> the bound weight it
+    exceeds) replaces the compares."""
     words = [int(v) for v in c["words"]]
     n = len(words)
     lj = [int(v) for v in c["lj"][:31]]
+    if count is None:
+        def count(win):
+            return sum(win > v for v in lj)
     fc = [int(v) for v in c["first_code"]]
     go = [int(v) for v in c["group_offset"]]
     ss = [int(v) for v in c["sorted_syms"]]
@@ -108,7 +136,7 @@ def scalar_walk(c) -> tuple[np.ndarray, set, np.ndarray]:
             w1 = words[index(w)]
             w2 = words[index(min(w + 1, n - 1))]
             win = w1 if sh == 0 else ((w1 << sh) | (w2 >> (32 - sh))) & M32
-            L = min_len + sum(win > v for v in lj)
+            L = min_len + count(win)
             if L == 32:
                 seen.add("32-bit code")
             elif L > 32:
@@ -268,12 +296,78 @@ def test_canon_walk_bound_counts_each_sector_once():
     assert ms == pytest.approx((32 + 12) / 3.35e12 * 1e3)
 
 
-# the kernel on the card: every corrupt case, a partial last CTA, and the
-# codec streams
+# adversarial bound tables for the prefix table: (kind, min_len, max_len)
+ADVERSARIAL = [("unsorted", 1, 32), ("duplicate", 1, 32), ("wild", 20, 16), ("inside", 0, 1),
+               ("clustered", 1, 32), ("edges", 3, 12), ("clustered", 20, 1), ("inside", 9, 32)]
+
+
+def adversarial_streams(kind, min_len, max_len, B=512) -> dict:
+    seed = 700 + 7 * min_len + max_len + tbp.PREFIX_BITS
+    return fixtures.canon_walk_streams(seed=seed, B=B, min_len=min_len, max_len=max_len,
+                                       lj=fixtures.prefix_bounds(kind, seed, n=32))
+
+
+def window_probes(bounds, bits, seed) -> np.ndarray:
+    """Both ends of every prefix's range, each bound and its neighbours,
+    and random windows, all in [0, 2^32)."""
+    lo = np.arange(1 << bits, dtype=np.int64) << (32 - bits)
+    v = np.asarray(bounds, dtype=np.int64)
+    rng = np.random.default_rng(seed)
+    w = np.concatenate([lo, lo + (1 << (32 - bits)) - 1, v - 1, v, v + 1,
+                        rng.integers(0, 2**32, 4096, dtype=np.int64)])
+    return w[(w >= 0) & (w < 2**32)]
+
+
+@pytest.mark.parametrize("bits", [8, tbp.PREFIX_BITS])
+@pytest.mark.parametrize("table", ["intra", "video mv", "video residual 0", "skewed",
+                                   "laplacian", "random"] + [f"{k} {m}" for k, _, m in ADVERSARIAL])
+def test_prefix_table_counts_as_the_compares(codec_walks, table, bits):
+    """``prefix_table`` + ``prefix_count`` (the kernels' rule) against the
+    weighted compare count (the last bound weighing 32 - ``max_len``), at
+    both ends of every prefix's range, at each bound and its neighbours and
+    on random windows: the real canonical codes of the intra and adaptive
+    decoders, the fixture's codes, and the adversarial tables at their
+    ``max_len``."""
+    if table in codec_walks:
+        lj, _, _, _, _, max_len = codec_walks[table]["tables"]
+        c = {"lj": lj.numpy(), "max_len": max_len}
+    elif table in ("skewed", "laplacian", "random"):
+        c = corrupt_streams(table, None if table != "random" else 1,
+                            9000 if table == "laplacian" else None, 40)
+    else:
+        kind, max_len = table.split()
+        c = {"lj": fixtures.prefix_bounds(kind, 19, n=32, bits=bits), "max_len": int(max_len)}
+    bounds, weights = canon_bounds(c)
+    v, w = torch.tensor(bounds), torch.tensor(weights)
+    t = tbp.prefix_table(v, w, bits)
+    win = torch.from_numpy(window_probes(bounds, bits, 5))
+    want = ((win[:, None] > v[None, :]) * w[None, :]).sum(dim=1)
+    assert_exact(tbp.prefix_count(win, t), want, f"{table} counts")
+
+
+@pytest.mark.parametrize("case", [("corrupt",) + k for k in sorted(CORRUPT, key=str)]
+                         + ADVERSARIAL, ids=str)
+def test_table_walk_matches_plain_walk(case):
+    """A scalar walk that counts by the prefix table, in the kernels' order
+    (the table's entry, else compares against the prefix's inner bounds),
+    equals ``decode_blocks_device_plain`` on the corrupt fixtures and on the
+    adversarial tables: unsorted, repeated, negative and >= 2^32 bounds
+    (taken modulo 2^32), bounds inside prefixes and at their edges,
+    ``max_len`` 1, 12, 16 and 32, ``min_len`` 0 to 20."""
+    c = corrupt_streams(*case[1:]) if case[0] == "corrupt" else adversarial_streams(*case)
+    want, _, bits = scalar_walk(c, table_count(*canon_bounds(c)))
+    got, got_bits = tbp.decode_blocks_device_plain(*port(c), return_bits=True)
+    assert_exact(got, want, f"plain walk vs table walk ({case})")
+    assert_exact(got_bits, bits, "bits walked")
+
+
+# the kernel on the card: every corrupt case, a partial last CTA, the
+# adversarial tables, and the codec streams
 @pytest.mark.cuda
-@pytest.mark.parametrize("case", sorted(CORRUPT, key=str), ids=str)
+@pytest.mark.parametrize("case", sorted(CORRUPT, key=str) + ADVERSARIAL, ids=str)
 def test_kernel_matches_plain_walk_on_corrupt_streams(cuda_device, case):
-    args = port(corrupt_streams(*case, B=333), cuda_device)
+    c = adversarial_streams(*case, B=333) if case in ADVERSARIAL else corrupt_streams(*case, B=333)
+    args = port(c, cuda_device)
     before = tbp.CANON_LAUNCHES
     got = tbp.decode_blocks_device(*args)
     torch.cuda.synchronize()

@@ -27,7 +27,7 @@ from torch_parity import (  # noqa: F401
 
 import ivclab_tpu_torch.ops.bitpack as tbp
 from ivclab_tpu_torch.utils import fixtures
-from ivclab_tpu_torch.utils.timing import decode_walk_bound
+from ivclab_tpu_torch.utils.timing import decode_walk_bound, kernel_base_name
 
 M32 = 0xFFFFFFFF
 
@@ -46,14 +46,40 @@ def jax_walk(c) -> np.ndarray:
         c["raw_bits"], c["max_len"]))
 
 
-def scalar_walk(c) -> tuple[np.ndarray, set, np.ndarray]:
+def hot_bounds(c) -> list[int]:
+    """The bounds the walk compares: the first ``max_len - 1`` (one at
+    ``max_len`` 1 and below)."""
+    max_len = c["max_len"]
+    return [int(v) for v in (c["lj"][: max_len - 1] if max_len > 1 else c["lj"][:1])]
+
+
+def table_count(bounds, weights, bits=tbp.PREFIX_BITS):
+    """The kernels' count of the bounds a window exceeds, in their order: the
+    prefix table's entry, then compares against that prefix's inner
+    bounds (``ops/bitpack.py::prefix_table``), in Python integers."""
+    base, first, count, inner_v, inner_w = (t.tolist() for t in tbp.prefix_table(
+        np.asarray(bounds, dtype=np.int64), np.asarray(weights, dtype=np.int64), bits))
+    shift = 32 - bits
+
+    def past(win: int) -> int:
+        p = win >> shift
+        return base[p] + sum(inner_w[k] for k in range(first[p], first[p] + count[p])
+                             if win > inner_v[k])
+    return past
+
+
+def scalar_walk(c, count=None) -> tuple[np.ndarray, set, np.ndarray]:
     """The walk one block at a time in Python integers: its values, the
-    edge cases it met on the way, and each block's bits walked."""
+    edge cases it met on the way, and each block's bits walked. ``count``
+    (a window -> the bounds it exceeds) replaces the compares."""
     local, counts = c["local"].astype(np.int64), c["counts"]
     B, LW = local.shape
     max_len, min_len, raw_bits = c["max_len"], c["min_len"], c["raw_bits"]
     max_syms, esc_rank = c["max_syms"], c["esc_rank"]
-    lj = [int(v) for v in (c["lj"][: max_len - 1] if max_len > 1 else c["lj"][:1])]
+    lj = hot_bounds(c)
+    if count is None:
+        def count(win):
+            return sum(win > v for v in lj)
     fc = [int(v) for v in c["first_code"]]
     go = [int(v) for v in c["group_offset"]]
     ar = [int(v) for v in c["alpha_of_rank"]]
@@ -74,7 +100,7 @@ def scalar_walk(c) -> tuple[np.ndarray, set, np.ndarray]:
             w1 = words[w] if w < LW else 0
             w2 = words[w + 1] if w + 1 < LW else 0
             win = w1 if sh == 0 else ((w1 << sh) | (w2 >> (32 - sh))) & M32
-            L = min_len + sum(win > v for v in lj)
+            L = min_len + count(win)
             if 0 <= L <= max_len:
                 fcv, gov = fc[L], go[L]
             else:
@@ -198,15 +224,105 @@ def test_decode_walk_bound_counts_each_byte_once():
     assert ms == pytest.approx((3 * 32 + 2 * (4 + 5 * 4)) / 3.35e12 * 1e3)
 
 
-# the kernel on the card: every case above, plus a walk of no blocks
-KERNEL_CASES = sorted(CORRUPT) + [None]  # None: the large rank table, 333 blocks
+# adversarial bound tables for the prefix table: (kind, min_len, max_len)
+ADVERSARIAL = [("unsorted", 1, 16), ("duplicate", 1, 16), ("wild", -3, 16), ("inside", 20, 16),
+               ("clustered", 1, 32), ("edges", 1, 32), ("inside", -3, 1), ("wild", 20, 32)]
+
+
+def adversarial_streams(kind, min_len, max_len, B=512) -> dict:
+    seed = 500 + 7 * min_len + max_len + tbp.PREFIX_BITS
+    return fixtures.walk_streams(seed=seed, B=B, min_len=min_len, max_len=max_len,
+                                 lj=fixtures.prefix_bounds(kind, seed, n=32))
+
+
+def window_probes(bounds, bits, seed) -> np.ndarray:
+    """Both ends of every prefix's range, each bound and its neighbours,
+    and random windows, all in [0, 2^32)."""
+    lo = np.arange(1 << bits, dtype=np.int64) << (32 - bits)
+    v = np.asarray(bounds, dtype=np.int64)
+    rng = np.random.default_rng(seed)
+    w = np.concatenate([lo, lo + (1 << (32 - bits)) - 1, v - 1, v, v + 1,
+                        rng.integers(0, 2**32, 4096, dtype=np.int64)])
+    return w[(w >= 0) & (w < 2**32)]
+
+
+@pytest.mark.parametrize("bits", [8, tbp.PREFIX_BITS])
+@pytest.mark.parametrize("table", ["gop mv", "gop residual", "corrupt"] + list(
+    fixtures.PREFIX_BOUND_KINDS))
+def test_prefix_table_counts_as_the_compares(gop_walks, table, bits):
+    """``prefix_table`` + ``prefix_count`` (the kernels' rule) against the
+    full compare count, at both ends of every prefix's range, at each bound
+    and its neighbours, and on random windows: the GOP's real hot codes,
+    the corrupt fixture's sorted bounds and each adversarial kind."""
+    if table.startswith("gop"):
+        bounds = hot_bounds(gop_walks[table.split()[1]])
+    elif table == "corrupt":
+        bounds = hot_bounds(corrupt_streams(1, 4))
+    else:
+        bounds = fixtures.prefix_bounds(table, 17, n=63, bits=bits).tolist()
+    v = torch.tensor(bounds, dtype=torch.int64)
+    t = tbp.prefix_table(v, torch.ones_like(v), bits)
+    assert t[0].shape == (1 << bits,) and int(t[2].sum()) == t[3].shape[0]
+    win = torch.from_numpy(window_probes(bounds, bits, 3))
+    want = (win[:, None] > v[None, :]).sum(dim=1)
+    assert_exact(tbp.prefix_count(win, t), want, f"{table} counts")
+    if table in ("inside", "clustered"):
+        assert int(t[2].sum()) == len(bounds), "every bound lies inside a prefix's range"
+
+
+@pytest.mark.parametrize("case", [("corrupt",) + k for k in sorted(CORRUPT)] + ADVERSARIAL,
+                         ids=str)
+def test_table_walk_matches_plain_walk(case):
+    """A scalar walk that counts by the prefix table, in the kernels' order
+    (the table's entry, else compares against the prefix's inner bounds),
+    equals ``decode_blocks_hot_plain`` on the corrupt fixtures and on the
+    adversarial tables: unsorted, repeated, negative and >= 2^32 bounds,
+    bounds inside prefixes and at their edges, ``min_len`` -3 and 20,
+    ``max_len`` 1 and 32."""
+    c = corrupt_streams(*case[1:]) if case[0] == "corrupt" else adversarial_streams(*case)
+    bounds = hot_bounds(c)
+    want, _, bits = scalar_walk(c, table_count(bounds, [1] * len(bounds)))
+    a = port_args(c)
+    got, got_bits = tbp.decode_blocks_hot_plain(*(a[k] for k in WALK_ARGS), return_bits=True)
+    assert_exact(got, want, f"plain walk vs table walk ({case})")
+    assert_exact(got_bits, bits, "bits walked")
+
+
+def test_kernel_base_name_matches_exactly():
+    """The profiler's kernel names reduce to the function's own name, so
+    ``walk_kernel`` is not found in ``canon_walk_kernel``, and a templated
+    or mangled name is still found."""
+    cases = {
+        "(anonymous namespace)::walk_kernel(long long const*, int, int, int const*, "
+        "(anonymous namespace)::Tables, int, int*)": "walk_kernel",
+        "void (anonymous namespace)::canon_walk_kernel(long long const*, long long, int const*, "
+        "int const*, int, (anonymous namespace)::CanonTables, int, int*)": "canon_walk_kernel",
+        "void (anonymous namespace)::me_kernel<4>(float const*, float const*, int*, int)":
+            "me_kernel",
+        "walk_kernel<10>": "walk_kernel",
+        "_ZN12_GLOBAL__N_111walk_kernelEPKxiiPKiNS_6TablesEiPi": "walk_kernel",
+        "_ZN12_GLOBAL__N_19me_kernelILi4EEEvPKfS2_Pii": "me_kernel",
+        "_Z17canon_walk_kernelPKxxPKiS2_i": "canon_walk_kernel",
+        "spin_kernel": "spin_kernel",
+    }
+    for name, want in cases.items():
+        assert kernel_base_name(name) == want, name
+
+
+# the kernel on the card: every case above, a walk of no blocks, and the
+# adversarial tables
+KERNEL_CASES = sorted(CORRUPT) + [None] + ADVERSARIAL  # None: the large rank table, 333 blocks
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("case", KERNEL_CASES)
 def test_kernel_matches_plain_walk_on_corrupt_streams(cuda_device, case):
-    c = (corrupt_streams(*case) if case
-         else fixtures.walk_streams(seed=7, B=333, n_ranks=9000, max_syms=37, raw_bits=12))
+    if case is None:
+        c = fixtures.walk_streams(seed=7, B=333, n_ranks=9000, max_syms=37, raw_bits=12)
+    elif len(case) == 3:
+        c = adversarial_streams(*case, B=333)
+    else:
+        c = corrupt_streams(*case)
     args = port_args(c, cuda_device)
     before = tbp.WALK_LAUNCHES
     got = walk(tbp.decode_blocks_hot, args)
