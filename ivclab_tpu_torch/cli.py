@@ -153,15 +153,19 @@ def _make_timer(args):
     return StageTimer(enabled=bool(getattr(args, "trace", False)), annotate=False)
 
 
-def _trace_report(timer, pixels: int) -> dict | None:
-    """Per-stage ms + Mpix/s."""
+def _add_trace(out: dict, timer, pixels: int) -> None:
+    """With ``--trace``: per-stage ms + Mpix/s under ``trace``, and the
+    port's spans (host ms and calls a name) and counters under ``spans``."""
     if not timer.enabled or not timer.totals:
-        return None
+        return
     rep = timer.report()
     for name, row in rep.items():
         if row["total_s"] > 0:
             row["mpix_per_s"] = round(pixels / row["total_s"] / 1e6, 2)
-    return rep
+    out["trace"] = rep
+    from ivclab_tpu_torch.runtime import trace
+
+    out["spans"] = trace.summary()
 
 
 def cmd_encode_video(args):
@@ -236,9 +240,7 @@ def cmd_encode_video(args):
         "mean_bpp": round(float(np.mean(bits)) / (y_host.shape[1] * y_host.shape[2]), 4),
         "per_frame_bits": bits,
     }
-    trace = _trace_report(timer, int(y_host.size))
-    if trace:
-        out["trace"] = trace
+    _add_trace(out, timer, int(y_host.size))
     print(json.dumps(out))
 
 
@@ -372,9 +374,7 @@ def cmd_decode_video(args):
         for t in range(out.shape[0]):
             imwrite(str(outp / f"frame{t:04d}.png"), out[t])
     rep = {"frames": int(out.shape[0]), "shape": list(out.shape[1:])}
-    trace = _trace_report(timer, int(out.size))
-    if trace:
-        rep["trace"] = trace
+    _add_trace(rep, timer, int(out.size))
     print(json.dumps(rep))
 
 
@@ -522,7 +522,8 @@ def build_parser():
     ap.add_argument(
         "--trace", action="store_true",
         help="emit per-stage timings + Mpix/s in the JSON report "
-             "(StageTimer; place before the subcommand)",
+             "(StageTimer) and the port's ivc.* span totals under 'spans' "
+             "(place before the subcommand)",
     )
     ap.add_argument(
         "--device", default="cuda",
@@ -594,7 +595,16 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    return args.fn(args)
+    if not args.trace:
+        return args.fn(args)
+    from ivclab_tpu_torch.runtime import trace
+
+    was_on = trace.enable()
+    try:
+        return args.fn(args)
+    finally:
+        if not was_on:
+            trace.disable()
 
 
 if __name__ == "__main__":

@@ -28,6 +28,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ivclab_tpu_torch.runtime import native
+from ivclab_tpu_torch.runtime.trace import span
 
 # format capability: the wire/decoder tables handle lengths up to 32 bits
 MAX_CODE_LEN = 32
@@ -232,7 +233,8 @@ def build_canonical_code(pmf: np.ndarray, lower_bound: int = 0, max_len: int = B
     if pmf.size == 1:
         return canonical_from_lengths(np.ones(1, dtype=np.int32), lower_bound)
     lengths = huffman_code_lengths(pmf)
-    lengths = limit_code_lengths(lengths, max_len)
+    with span("ivc.codebook.limit"):
+        lengths = limit_code_lengths(lengths, max_len)
     return canonical_from_lengths(lengths, lower_bound)
 
 

@@ -47,6 +47,7 @@ from ivclab_tpu_torch.ops.zerorun import (
     zerorun_encode_blocks,
 )
 from ivclab_tpu_torch.runtime.container import GroupedSection, HotCodebook, VideoPayload
+from ivclab_tpu_torch.runtime.trace import fetch, span, upload_pageable
 
 EOB = 4000
 
@@ -87,7 +88,7 @@ def _blocks_to_plane(blocks, H, W):
 
 
 def _i64(a, device) -> torch.Tensor:
-    return torch.from_numpy(np.asarray(a).astype(np.int64)).to(device)
+    return upload_pageable(torch.from_numpy(np.asarray(a).astype(np.int64)), device)
 
 
 # --------------------------------------------------------------------- phases
@@ -136,12 +137,13 @@ def _map_gop_hot(qsyms, hot_vals, hot_fused, esc_code, esc_len, lower_bound, cap
     capacity flag, so the caller can check its sticky buckets on the device.
     """
     T, N, _ = qsyms.shape
-    flat = qsyms.reshape(T * N, 64)
-    buf, valid = zerorun_encode_blocks(flat, 64, EOB, cap)
-    codes, lens = map_codes_hot(buf - lower_bound, valid, hot_vals, hot_fused,
-                                esc_code, esc_len, raw_bits)
-    bw_max, gw_max = pack_extents(lens)
-    cap_ok = valid.max() <= cap  # valid holds the true per-block counts
+    with span("ivc.pack.map", qsyms.device):
+        flat = qsyms.reshape(T * N, 64)
+        buf, valid = zerorun_encode_blocks(flat, 64, EOB, cap)
+        codes, lens = map_codes_hot(buf - lower_bound, valid, hot_vals, hot_fused,
+                                    esc_code, esc_len, raw_bits)
+        bw_max, gw_max = pack_extents(lens)
+        cap_ok = valid.max() <= cap  # valid holds the true per-block counts
     return codes, lens, valid, bw_max, gw_max, cap_ok
 
 
@@ -232,8 +234,9 @@ class FusedVideoCodec:
         self.sr = int(search_range)
         self.device = torch.device(device)
         qt = quant_table_zigzag(self.q, 1)[0]
-        self.qt = torch.from_numpy(qt).to(self.device)
-        self.inv_qt = torch.from_numpy((1.0 / qt).astype(np.float32)).to(self.device)
+        self.qt = upload_pageable(torch.from_numpy(qt), self.device)
+        self.inv_qt = upload_pageable(torch.from_numpy((1.0 / qt).astype(np.float32)),
+                                      self.device)
         self.residual_code: HotCode | None = None
         self.mv_code: HotCode | None = None
         self._buckets: tuple[int, int, int] | None = None
@@ -282,10 +285,10 @@ class FusedVideoCodec:
         for p in planes:
             buf, valid, _ = forward_symbolize(p[:, :, None], self.inv_qt[None], EOB)
             bufs.append((buf, valid))
-        mn = min(int(_sym_min_max(b, v)[0]) for b, v in bufs)
-        mx = max(int(_sym_min_max(b, v)[1]) for b, v in bufs)
+        mn = min(int(fetch(_sym_min_max(b, v)[0])) for b, v in bufs)
+        mx = max(int(fetch(_sym_min_max(b, v)[1])) for b, v in bufs)
         lo, hi = bucket_bounds(mn, mx)
-        hist = sum(symbol_histogram(b, v, lo, hi).cpu().numpy() for b, v in bufs)
+        hist = sum(fetch(symbol_histogram(b, v, lo, hi)).numpy() for b, v in bufs)
         self.set_residual_code(build_hot_code(hist, lower_bound=lo))
 
         n_mv = (2 * self.sr + 1) ** 2
@@ -305,9 +308,10 @@ class FusedVideoCodec:
     def encode_gop(self, frames_y):
         """[T, H, W] float32 -> (qsyms [T, N, 64], mvs [T, H/8, W/8],
         mv_bits [T], recons [T, H, W])."""
-        frames = self._frames(frames_y)
-        self._require_fp32()
-        return _encode_gop(frames, self.qt, self.inv_qt, self._mv_length_table(), self.sr)
+        with span("ivc.fused.encode_gop", self.device):
+            frames = self._frames(frames_y)
+            self._require_fp32()
+            return _encode_gop(frames, self.qt, self.inv_qt, self._mv_length_table(), self.sr)
 
     def _mv_length_table(self) -> torch.Tensor:
         """Each motion index's code length, on the device: built once for
@@ -336,15 +340,19 @@ class FusedVideoCodec:
         the caller checks ``.ok`` at its next sync point (re-packing with
         :meth:`repack_gop` if it is False).
         """
+        with span("ivc.fused.pack_gop", qsyms.device):
+            return self._pack_gop(qsyms, check)
+
+    def _pack_gop(self, qsyms, check: bool) -> PackedGop:
         code = self.residual_code
         hv, hf, esc_code, esc_len = self._enc
         dev = qsyms.device
         if self._buckets is None:
-            cap = _bucket(int(zerorun_counts(qsyms.reshape(-1, 64)).max()), CAP_BUCKETS)
+            cap = _bucket(int(fetch(zerorun_counts(qsyms.reshape(-1, 64)).max())), CAP_BUCKETS)
             codes, lens, valid, bw_max, gw_max, _ = _map_gop_hot(
                 qsyms, hv, hf, esc_code, esc_len, code.lower_bound, cap, code.raw_bits)
-            bw = _bucket(int(bw_max) + 2, BW_BUCKETS)
-            gw = _bucket(int(gw_max), GW_BUCKETS)
+            bw = _bucket(int(fetch(bw_max)) + 2, BW_BUCKETS)
+            gw = _bucket(int(fetch(gw_max)), GW_BUCKETS)
             self._buckets = (cap, bw, gw)
             okflag = torch.ones((), dtype=torch.bool, device=dev)
         else:
@@ -362,7 +370,7 @@ class FusedVideoCodec:
         gbits = group_bits.reshape(T, G)
         p = PackedGop(words, gbits.sum(dim=1, dtype=torch.int32), offs, valid.reshape(T, N),
                       gbits, bw, cap, okflag)
-        if check and not bool(okflag):
+        if check and not bool(fetch(okflag)):
             return self.repack_gop(qsyms)
         return p
 
@@ -374,20 +382,21 @@ class FusedVideoCodec:
     def decode_gop(self, words, block_offsets, block_counts, mvs, H: int, W: int,
                    block_words: int | None = None, cap: int | None = None):
         """Entropy decode + reconstruct the GOP. Returns (recons, ok)."""
-        code = self.residual_code
-        if cap is None:
-            cap = _bucket(int(block_counts.max()), CAP_BUCKETS)
-        if block_words is None:
-            # conservative: every symbol at the max coded length
-            block_words = _bucket(cap * code.mean_len_bound() // 32 + 2, BW_BUCKETS)
-        self._require_fp32()
-        d = self._dec
-        return _decode_gop_hot(
-            words, block_offsets, block_counts, mvs,
-            d.lj, d.first_code, d.group_offset, d.alpha_of_rank, d.min_len, d.esc_rank,
-            code.lower_bound, self.qt, H, W, cap, block_words, self.sr, code.raw_bits,
-            code.code.max_len,
-        )
+        with span("ivc.fused.decode_gop", words.device):
+            code = self.residual_code
+            if cap is None:
+                cap = _bucket(int(fetch(block_counts.max())), CAP_BUCKETS)
+            if block_words is None:
+                # conservative: every symbol at the max coded length
+                block_words = _bucket(cap * code.mean_len_bound() // 32 + 2, BW_BUCKETS)
+            self._require_fp32()
+            d = self._dec
+            return _decode_gop_hot(
+                words, block_offsets, block_counts, mvs,
+                d.lj, d.first_code, d.group_offset, d.alpha_of_rank, d.min_len, d.esc_rank,
+                code.lower_bound, self.qt, H, W, cap, block_words, self.sr, code.raw_bits,
+                code.code.max_len,
+            )
 
     # ------------------------------------------------------------ container
 
@@ -396,10 +405,11 @@ class FusedVideoCodec:
         hot/escape codebooks (residual + MV), the grouped residual streams
         with their parallel-decode sidecar, and the packed MV streams for
         frames 1..T-1."""
-        frames = self._frames(frames_y)
-        qsyms, mvs, _, _ = self.encode_gop(frames)
-        p = self.pack_gop(qsyms)
-        return self.container_from_packed(p, mvs, tuple(frames.shape))
+        with span("ivc.fused.encode_to_container"):
+            frames = self._frames(frames_y)
+            qsyms, mvs, _, _ = self.encode_gop(frames)
+            p = self.pack_gop(qsyms)
+            return self.container_from_packed(p, mvs, tuple(frames.shape))
 
     def container_from_packed(self, p: PackedGop, mvs, shape) -> bytes:
         """Serialize an already-packed GOP (+ motion fields) to IVC1 bytes."""
@@ -412,24 +422,24 @@ class FusedVideoCodec:
         hv, hf, esc_code, esc_len = _encode_tables(mvc, mv_flat.device)
         codes, lens, mv_counts, bw_max, gw_max = _map_stream_hot(
             mv_flat, hv, hf, esc_code, esc_len, n_blocks, mvc.raw_bits)
-        mv_bw = _bucket(int(bw_max) + 2, BW_BUCKETS)
-        mv_gw = _bucket(int(gw_max), GW_BUCKETS)
+        mv_bw = _bucket(int(fetch(bw_max)) + 2, BW_BUCKETS)
+        mv_gw = _bucket(int(fetch(gw_max)), GW_BUCKETS)
         mv_words, mv_gbits, mv_offs = pack_grouped_sized(codes, lens, mv_gw, mv_bw)
 
         _, G, GW = p.words.shape
         frame_base = np.arange(T, dtype=np.int64)[:, None] * (G * GW * 32)
-        global_offs = p.offsets.cpu().numpy().astype(np.int64) + frame_base
+        global_offs = fetch(p.offsets).numpy().astype(np.int64) + frame_base
         residual = GroupedSection.from_device(
             p.words, p.group_bits, global_offs, p.counts, PACK_GROUP, GW)
         mv_section = GroupedSection.from_device(
             mv_words, mv_gbits, mv_offs, mv_counts, PACK_GROUP, mv_gw)
-        totals = p.totals.cpu().numpy().astype(np.uint64)
+        totals = fetch(p.totals).numpy().astype(np.uint64)
         payload = VideoPayload(
             quantization_scale=self.q,
             eob=EOB,
             search_range=self.sr,
             shape=(T, H, W),
-            payload_bits=int(totals.sum()) + int(mv_gbits.sum()),
+            payload_bits=int(totals.sum()) + int(fetch(mv_gbits.sum())),
             frame_bits=totals,
             residual_codebook=HotCodebook.from_code(self.residual_code),
             mv_codebook=HotCodebook.from_code(mvc),
@@ -442,41 +452,47 @@ class FusedVideoCodec:
     def decode_from_container(cls, blob: bytes, device: str | torch.device = "cuda"):
         """Reconstruct a GOP from bytes alone. Returns ([T, H, W] float32
         Y reconstructions, ok) on ``device``."""
-        p = VideoPayload.from_bytes(blob)
-        T, H, W = p.shape
-        codec = cls(quantization_scale=p.quantization_scale, search_range=p.search_range,
-                    device=device)
-        codec.set_residual_code(p.residual_codebook.to_code())
-        mvc = p.mv_codebook.to_code()
-        codec.mv_code = mvc
+        with span("ivc.fused.decode_from_container"):
+            with span("ivc.decode.parse"):
+                p = VideoPayload.from_bytes(blob)
+            T, H, W = p.shape
+            with span("ivc.decode.tables"):
+                codec = cls(quantization_scale=p.quantization_scale,
+                            search_range=p.search_range, device=device)
+                codec.set_residual_code(p.residual_codebook.to_code())
+                mvc = p.mv_codebook.to_code()
+                codec.mv_code = mvc
+                mv_tables = _decode_tables(mvc, codec.device)
+            with span("ivc.decode.upload"):
+                mv_words, mv_offs, mv_counts = p.mv.device_views(codec.device)
+                words_flat, offs, counts = p.residual.device_views(codec.device)
+            with span("ivc.decode.enqueue"):
+                # MV substream first
+                mv_lw = min(p.mv.words_per_group,
+                            _bucket(64 * mvc.mean_len_bound() // 32 + 2, BW_BUCKETS))
+                sym = _decode_stream_hot(
+                    mv_words.reshape(-1, p.mv.words_per_group), mv_offs, mv_counts,
+                    mv_tables, 64, mv_lw, mvc.raw_bits, mvc.code.max_len)
+                hb, wb = H // 8, W // 8
+                M = (T - 1) * hb * wb
+                if sym.numel() < M:
+                    raise ValueError("MV section holds fewer symbols than the GOP needs")
+                mv_p = sym.reshape(-1)[:M].reshape(T - 1, hb, wb)
+                filler = torch.full((1, hb, wb), codec.sr * (2 * codec.sr + 1) + codec.sr,
+                                    dtype=torch.int32, device=codec.device)
+                mvs = torch.cat([filler, mv_p], dim=0)
 
-        # MV substream first
-        mv_words, mv_offs, mv_counts = p.mv.device_views(codec.device)
-        mv_lw = min(p.mv.words_per_group,
-                    _bucket(64 * mvc.mean_len_bound() // 32 + 2, BW_BUCKETS))
-        sym = _decode_stream_hot(
-            mv_words.reshape(-1, p.mv.words_per_group), mv_offs, mv_counts,
-            _decode_tables(mvc, codec.device), 64, mv_lw, mvc.raw_bits, mvc.code.max_len)
-        hb, wb = H // 8, W // 8
-        M = (T - 1) * hb * wb
-        if sym.numel() < M:
-            raise ValueError("MV section holds fewer symbols than the GOP needs")
-        mv_p = sym.reshape(-1)[:M].reshape(T - 1, hb, wb)
-        filler = torch.full((1, hb, wb), codec.sr * (2 * codec.sr + 1) + codec.sr,
-                            dtype=torch.int32, device=codec.device)
-        mvs = torch.cat([filler, mv_p], dim=0)
-
-        # residual streams
-        words_flat, offs, counts = p.residual.device_views(codec.device)
-        G = p.residual.group_word_counts.size // T
-        GW = p.residual.words_per_group
-        words = words_flat.reshape(T, G, GW)
-        frame_base = (torch.arange(T, device=codec.device, dtype=torch.int32) * (G * GW * 32))
-        offsets = offs.reshape(T, -1) - frame_base[:, None]
-        counts = counts.reshape(T, -1)
-        cap = _bucket(int(p.residual.block_counts.max(initial=1)), CAP_BUCKETS)
-        bw = _bucket(p.max_block_words(), BW_BUCKETS)
-        return codec.decode_gop(words, offsets, counts, mvs, H, W, bw, cap)
+                # residual streams
+                G = p.residual.group_word_counts.size // T
+                GW = p.residual.words_per_group
+                words = words_flat.reshape(T, G, GW)
+                frame_base = (torch.arange(T, device=codec.device, dtype=torch.int32)
+                              * (G * GW * 32))
+                offsets = offs.reshape(T, -1) - frame_base[:, None]
+                counts = counts.reshape(T, -1)
+                cap = _bucket(int(p.residual.block_counts.max(initial=1)), CAP_BUCKETS)
+                bw = _bucket(p.max_block_words(), BW_BUCKETS)
+                return codec.decode_gop(words, offsets, counts, mvs, H, W, bw, cap)
 
     # ------------------------------------------------------------ one-call
 

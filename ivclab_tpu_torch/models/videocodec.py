@@ -79,6 +79,7 @@ from ivclab_tpu_torch.runtime.container import (
     _numpy,
     packer_wmax,
 )
+from ivclab_tpu_torch.runtime.trace import fetch, span, upload_pageable
 from ivclab_tpu_torch.utils.shape import upload
 
 CODEBOOK_POLICIES = ("per-frame", "adaptive", "first-p-frame")
@@ -158,7 +159,7 @@ def _masked_code_bits(buf, valid, enc_lens, lower):
 
 def _to_host(tensors) -> list[np.ndarray]:
     """Integer tensors of one device -> numpy arrays (int64), in one copy."""
-    flat = torch.cat([t.reshape(-1).to(torch.int64) for t in tensors]).cpu().numpy()
+    flat = fetch(torch.cat([t.reshape(-1).to(torch.int64) for t in tensors])).numpy()
     out, off = [], 0
     for t in tensors:
         out.append(flat[off:off + t.numel()].reshape(tuple(t.shape)))
@@ -170,7 +171,7 @@ def _code_tables(codes, device) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """Each canonical code's (codes, lengths) as int64 tensors on ``device``,
     in one upload."""
     flat = np.concatenate([np.concatenate([c.codes, c.lengths]).astype(np.int64) for c in codes])
-    dev = torch.from_numpy(flat).to(device)
+    dev = upload_pageable(torch.from_numpy(flat), device)
     out, off = [], 0
     for c in codes:
         out.append((dev[off:off + c.n], dev[off + c.n:off + 2 * c.n]))
@@ -627,8 +628,9 @@ class VideoCodec:
         code on the host -> (codes, largest counts, motion fields)."""
         bufs, valids, mn, mx, hist, mvs, _, vmax = outs
         mn_np, mx_np, hist_np, mvs_np, vmax_np = _to_host([mn, mx, hist, mvs, vmax])
-        codes = _train_codes(mn_np, mx_np, hist_np,
-                             lambda t, lo, hi: symbol_histogram(bufs[t], valids[t], lo, hi))
+        with span("ivc.adaptive.codebooks"):
+            codes = _train_codes(mn_np, mx_np, hist_np,
+                                 lambda t, lo, hi: symbol_histogram(bufs[t], valids[t], lo, hi))
         return codes, vmax_np, mvs_np
 
     def encode_to_container(self, frames_y) -> bytes:
@@ -644,23 +646,29 @@ class VideoCodec:
                 "policy 'per-frame' or 'adaptive' (first-p-frame streams "
                 "serialize via FusedVideoCodec.encode_to_container)"
             )
-        y = self._upload(frames_y)
-        T, H, W = y.shape
-        if H % 8 or W % 8:
-            raise ValueError("container path needs frame dims divisible by 8")
-        self._require_fp32()
-        qt, inv_qt = self.intra_codec._tables(1)
-        mv_code = self._require_mv_code()
+        with span("ivc.adaptive.encode"):
+            y = self._upload(frames_y)
+            T, H, W = y.shape
+            if H % 8 or W % 8:
+                raise ValueError("container path needs frame dims divisible by 8")
+            self._require_fp32()
+            qt, inv_qt = self.intra_codec._tables(1)
+            mv_code = self._require_mv_code()
 
-        outs = _pframe_scan(y, range(T), inv_qt, qt, self.search_range, self.end_of_block)
-        codes, vmax_np, mvs_np = self._per_frame_codes(outs)
-        bufs, valids, recons = outs[0], outs[1], outs[6]
-        packed = _pack_frames([(bufs[t], valids[t], cap_slice(int(vmax_np[t]), BLOCK_CAP),
-                                codes[t]) for t in range(T)])
-        self.decoder_recon = recons[-1]
-        return _adaptive_payload(self.quantization_scale, self.end_of_block, self.search_range,
-                                 self.codebook_policy, (T, H, W), codes, packed, mvs_np,
-                                 mv_code)
+            with span("ivc.adaptive.scan"):
+                outs = _pframe_scan(y, range(T), inv_qt, qt, self.search_range,
+                                    self.end_of_block)
+            codes, vmax_np, mvs_np = self._per_frame_codes(outs)
+            bufs, valids, recons = outs[0], outs[1], outs[6]
+            with span("ivc.adaptive.pack"):
+                packed = _pack_frames([(bufs[t], valids[t],
+                                        cap_slice(int(vmax_np[t]), BLOCK_CAP), codes[t])
+                                       for t in range(T)])
+            self.decoder_recon = recons[-1]
+            with span("ivc.adaptive.serialize"):
+                return _adaptive_payload(self.quantization_scale, self.end_of_block,
+                                         self.search_range, self.codebook_policy, (T, H, W),
+                                         codes, packed, mvs_np, mv_code)
 
     @classmethod
     def decode_from_container(cls, blob: bytes, return_device: bool = False,
@@ -677,48 +685,54 @@ class VideoCodec:
         synchronisation; otherwise a numpy array, and a corrupt frame raises
         ``ValueError``.
         """
-        p = AdaptiveVideoPayload.from_bytes(blob)
-        T, H, W = p.shape
-        sr, eob = p.search_range, p.eob
-        dev = torch.device(device)
-        if dev.type == "cuda":
-            require_full_fp32()
-        hb, wb = H // 8, W // 8
-        hp, wp = -(-H // 8), -(-W // 8)  # a T=1 facade I-frame may be edge-padded
-        M = (T - 1) * hb * wb
-        if T > 1 and (H % 8 or W % 8):
-            raise ValueError(f"P-frame dims must be multiples of 8, got ({H}, {W})")
-        if p.mv.block_counts.size * 64 < M:
-            raise ValueError("MV section holds fewer symbols than the GOP needs")
-        if any(s.block_counts.size < hp * wp for _, s in p.frames):
-            raise ValueError("a frame section holds fewer blocks than the frame needs")
+        with span("ivc.adaptive.decode"):
+            with span("ivc.decode.parse"):
+                p = AdaptiveVideoPayload.from_bytes(blob)
+            T, H, W = p.shape
+            sr, eob = p.search_range, p.eob
+            dev = torch.device(device)
+            if dev.type == "cuda":
+                require_full_fp32()
+            hb, wb = H // 8, W // 8
+            hp, wp = -(-H // 8), -(-W // 8)  # a T=1 facade I-frame may be edge-padded
+            M = (T - 1) * hb * wb
+            if T > 1 and (H % 8 or W % 8):
+                raise ValueError(f"P-frame dims must be multiples of 8, got ({H}, {W})")
+            if p.mv.block_counts.size * 64 < M:
+                raise ValueError("MV section holds fewer symbols than the GOP needs")
+            if any(s.block_counts.size < hp * wp for _, s in p.frames):
+                raise ValueError("a frame section holds fewer blocks than the frame needs")
 
-        qt = upload(quant_table_zigzag(p.quantization_scale, 1), dev)
-        if M:
-            mv_views = p.mv.device_views(dev)
-            mv_tables = decode_tables(p.mv_codebook.canonical(), dev)
-        frames = []
-        for cb, section in p.frames:
-            code = cb.canonical()
-            frames.append((code.lower_bound, section.device_views(dev), decode_tables(code, dev),
-                           int(section.block_counts.max(initial=0))))
+            with span("ivc.decode.tables"):
+                qt = upload(quant_table_zigzag(p.quantization_scale, 1), dev)
+                if M:
+                    mv_tables = decode_tables(p.mv_codebook.canonical(), dev)
+                codes = [cb.canonical() for cb, _ in p.frames]
+                tables = [decode_tables(code, dev) for code in codes]
+            with span("ivc.decode.upload"):
+                if M:
+                    mv_views = p.mv.device_views(dev)
+                views = [section.device_views(dev) for _, section in p.frames]
 
-        if M:
-            mvs = _decode_flat(p.mv, mv_views, mv_tables)[:M].reshape(T - 1, hb, wb)
-        recons, oks, recon = [], [], None
-        for t, (lower, views, tables, vmax) in enumerate(frames):
-            rrec, ok = _decode_residual(lower, views, tables, vmax, (hp, wp), eob, qt)
-            oks.append(ok)
-            rrec = rrec[:H, :W]
-            recon = rrec if t == 0 else motion_compensate(recon, mvs[t - 1], sr) + rrec
-            recons.append(recon)
-        recons, oks = torch.stack(recons), torch.stack(oks)
-        if return_device:
-            return recons, oks
-        for t, ok in enumerate(oks.cpu().tolist()):
-            if not ok:
-                raise ValueError(f"frame {t}: corrupt residual stream")
-        return recons.cpu().numpy()
+            with span("ivc.decode.enqueue"):
+                if M:
+                    mvs = _decode_flat(p.mv, mv_views, mv_tables)[:M].reshape(T - 1, hb, wb)
+                recons, oks, recon = [], [], None
+                for t, ((_, section), code) in enumerate(zip(p.frames, codes)):
+                    rrec, ok = _decode_residual(code.lower_bound, views[t], tables[t],
+                                                int(section.block_counts.max(initial=0)),
+                                                (hp, wp), eob, qt)
+                    oks.append(ok)
+                    rrec = rrec[:H, :W]
+                    recon = rrec if t == 0 else motion_compensate(recon, mvs[t - 1], sr) + rrec
+                    recons.append(recon)
+                recons, oks = torch.stack(recons), torch.stack(oks)
+            if return_device:
+                return recons, oks
+            for t, ok in enumerate(fetch(oks).tolist()):
+                if not ok:
+                    raise ValueError(f"frame {t}: corrupt residual stream")
+            return fetch(recons).numpy()
 
     # ------------------------------------------------------------ sequences
 

@@ -23,6 +23,7 @@ from ivclab_tpu_torch.ops.bitpack import (
 )
 from ivclab_tpu_torch.ops.dct import dct2_fused, idct2_fused
 from ivclab_tpu_torch.ops.zerorun import BLOCK_CAP, zerorun_encode_blocks
+from ivclab_tpu_torch.runtime.trace import span
 
 # Group geometry of the grouped packer: 16 blocks per word-aligned
 # substream; worst case 16 blocks x 97 symbols x 32 bits = 1552 words.
@@ -217,7 +218,8 @@ def map_codes_hot(buf: torch.Tensor, valid_len: torch.Tensor, hot_values, hot_fu
 def pack_grouped_sized(codes: torch.Tensor, lens: torch.Tensor, words_per_group: int,
                        block_words: int):
     """Grouped pack with explicitly sized group and block word buffers."""
-    return pack_codes_grouped_dense(codes, lens, PACK_GROUP, words_per_group, block_words)
+    with span("ivc.pack.deposit", codes.device):
+        return pack_codes_grouped_dense(codes, lens, PACK_GROUP, words_per_group, block_words)
 
 
 def pack_extents(lens: torch.Tensor):

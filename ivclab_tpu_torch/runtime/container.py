@@ -41,6 +41,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ivclab_tpu_torch.runtime.trace import fetch
 from ivclab_tpu_torch.utils.shape import upload
 
 MAGIC = b"IVC1"
@@ -90,7 +91,7 @@ class _Reader:
 
 
 def _numpy(x) -> np.ndarray:
-    return x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    return fetch(x.detach()).numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 @dataclass

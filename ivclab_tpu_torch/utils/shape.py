@@ -15,6 +15,8 @@ import functools
 import numpy as np
 import torch
 
+from ivclab_tpu_torch.runtime.trace import count
+
 
 def as_tensor(x) -> torch.Tensor:
     """A tensor as it is, or a numpy array (or list) as a CPU tensor."""
@@ -35,6 +37,7 @@ def upload(a, device) -> torch.Tensor:
     dev = torch.device(device)
     if dev.type != "cuda":
         return torch.from_numpy(np.array(a, order="C")).to(dev)
+    count("h2d_bytes", a.nbytes)
     host = torch.empty(a.shape, dtype=torch.from_numpy(np.empty(0, a.dtype)).dtype,
                        pin_memory=True)
     host.numpy()[...] = a

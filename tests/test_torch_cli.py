@@ -141,6 +141,11 @@ def test_encode_video_trace_reports_every_stage(capsys, tmp_path):
     assert sorted(out["trace"]) == ["decode-check", "encode", "pack", "serialize", "train"]
     for row in out["trace"].values():
         assert row["calls"] == 1 and row["total_s"] >= 0 and "mean_ms" in row
+    # each stage is a span of the port's recorder, around the port's own spans
+    names = out["spans"]["names"]
+    assert set(out["trace"]) | {"ivc.fused.encode_gop", "ivc.fused.pack_gop",
+                                "ivc.pack.map", "ivc.pack.deposit"} <= set(names)
+    assert names["pack"]["calls"] == 1 and names["ivc.fused.pack_gop"]["host_ms"] >= 0
 
 
 @pytest.mark.parametrize("policy", ["first-p-frame", "per-frame"])
