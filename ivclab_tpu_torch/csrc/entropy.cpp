@@ -1,12 +1,15 @@
-// Serial entropy-coding engine: canonical Huffman bitstream pack/unpack and
-// zero-run block coding.
+// Serial entropy-coding engine: canonical Huffman bitstream pack/unpack,
+// the Huffman tree's depths and their length limit, and zero-run block
+// coding.
 //
 // Role in the framework (SURVEY.md §7 step 3): the correctness oracle and
 // host-side engine beside the tensor implementations in
 // ivclab_tpu_torch/ops/bitpack.py and ivclab_tpu_torch/ops/zerorun.py. The
 // bitstream format is identical to the tensor packer: MSB-first bits in
-// big-endian u32 words. A copy of ivclab_tpu/runtime/native/entropy.cpp:
-// both packages build their own, and the two give the same outputs.
+// big-endian u32 words. A copy of ivclab_tpu/runtime/native/entropy.cpp,
+// plus the length limit (ivc_limit_lengths), which the JAX package runs
+// as a Python loop: both packages build their own, and the two give the
+// same outputs.
 //
 // Build: g++ -O3 -std=c++17 -shared -fPIC, at first use, by
 // ivclab_tpu_torch/runtime/cuda_build.py::build_host (see runtime/native.py).
@@ -54,6 +57,31 @@ int64_t ivc_huffman_depths(const double* leaf_w, int64_t n,
     depth[node] = depth[parent[node]] + 1;
   std::memcpy(out_depth, depth.data(), sizeof(int32_t) * n);
   return 0;
+}
+
+// Length limit of a prefix code (libjpeg's adjustment) on its length
+// histogram `bits[0..top]`, in place: bit-for-bit the same loop, in the
+// same order, as the numpy loop in entropy/codebook.py (_limit_bits_np).
+// While a length i > max_len holds codes, a pair of them moves up: one
+// becomes a code of length i-1, the other the sibling of the deepest leaf
+// j <= i-2, which splits into two leaves of length j+1. Returns the number
+// of pair moves, or -1 where no leaf of length >= 1 is left to split (more
+// symbols than 2^max_len).
+int64_t ivc_limit_lengths(int64_t* bits, int32_t top, int32_t max_len) {
+  int64_t moves = 0;
+  for (int32_t i = top; i > max_len; --i) {
+    while (bits[i] > 0) {
+      int32_t j = i - 2;
+      while (j >= 1 && bits[j] == 0) --j;
+      if (j < 1) return -1;
+      bits[i] -= 2;
+      bits[i - 1] += 1;
+      bits[j + 1] += 2;
+      bits[j] -= 1;
+      ++moves;
+    }
+  }
+  return moves;
 }
 
 // Pack n codewords (right-aligned `codes`, bit lengths `lens`, 0 = skip)

@@ -1,9 +1,10 @@
 """Canonical, length-limited Huffman codebook construction (host, numpy).
 
 Port of ``ivclab_tpu/entropy/codebook.py``. Table construction is
-O(alphabet) work and stays on the host (the Huffman depth loop in the C++
-engine, ``runtime/native.py``, where there is a ``g++``); the per-symbol
-work (encode and decode) runs on tensors (``ivclab_tpu_torch/ops/bitpack.py``).
+O(alphabet) work and stays on the host (the Huffman depth loop and the
+length limit in the C++ engine, ``runtime/native.py``, where there is a
+``g++``); the per-symbol work (encode and decode) runs on tensors
+(``ivclab_tpu_torch/ops/bitpack.py``).
 
 Design:
 - Optimal code lengths via the two-queue Huffman method over sorted
@@ -28,7 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 
 from ivclab_tpu_torch.runtime import native
-from ivclab_tpu_torch.runtime.trace import span
+from ivclab_tpu_torch.runtime.trace import count, span
 
 # format capability: the wire/decoder tables handle lengths up to 32 bits
 MAX_CODE_LEN = 32
@@ -116,24 +117,27 @@ def limit_code_lengths(lengths: np.ndarray, max_len: int = MAX_CODE_LEN) -> np.n
     preserves Kraft equality, then lengths are re-dealt to symbols by
     descending frequency rank (the caller passes lengths already ranked).
     Input and output are per-symbol lengths; symbols keep their relative
-    rank ordering (shorter codes to more probable symbols).
+    rank ordering (shorter codes to more probable symbols). More symbols
+    than ``2**max_len`` raise ``ValueError``.
+
+    The rebalance runs in the C++ engine (``native.limit_bits``), the numpy
+    loop ``_limit_bits_np`` where there is no ``g++``; counted in
+    ``limit_native`` (calls the engine served) and ``limit_moves`` (pair
+    moves) of the recorder.
     """
     lengths = np.asarray(lengths, dtype=np.int32)
+    if lengths.size > 1 << max_len:
+        raise ValueError(f"{lengths.size} symbols cannot be limited to {max_len} bits")
     if lengths.size == 0 or lengths.max(initial=0) <= max_len:
         return lengths
     top = int(lengths.max())
     bits = np.bincount(lengths, minlength=top + 1).astype(np.int64)
-    for i in range(top, max_len, -1):
-        while bits[i] > 0:
-            j = i - 2
-            while bits[j] == 0:
-                j -= 1
-            # move a pair of leaves up: one code at depth i becomes depth i-1,
-            # one leaf at depth j splits into two at depth j+1
-            bits[i] -= 2
-            bits[i - 1] += 1
-            bits[j + 1] += 2
-            bits[j] -= 1
+    moves = native.limit_bits(bits, max_len)
+    if moves is None:
+        moves = _limit_bits_np(bits, max_len)
+    else:
+        count("limit_native")
+    count("limit_moves", moves)
     # re-deal lengths: sort symbols by original length (frequency rank proxy),
     # stable so equal-probability ties stay deterministic
     rank = np.argsort(lengths, kind="stable")
@@ -141,6 +145,28 @@ def limit_code_lengths(lengths: np.ndarray, max_len: int = MAX_CODE_LEN) -> np.n
     dealt = np.repeat(np.arange(top + 1), bits)
     new_lengths[rank] = dealt[: lengths.size].astype(np.int32)
     return new_lengths
+
+
+def _limit_bits_np(bits: np.ndarray, max_len: int) -> int:
+    """The length limit's loop on the histogram ``bits[0..top]``, in place;
+    returns the number of pair moves (``ValueError`` where no leaf of
+    length >= 1 is left to split)."""
+    moves = 0
+    for i in range(bits.size - 1, max_len, -1):
+        while bits[i] > 0:
+            j = i - 2
+            while j >= 1 and bits[j] == 0:
+                j -= 1
+            if j < 1:
+                raise ValueError(f"more codes than 2**{max_len}")
+            # move a pair of leaves up: one code at depth i becomes depth i-1,
+            # one leaf at depth j splits into two at depth j+1
+            bits[i] -= 2
+            bits[i - 1] += 1
+            bits[j + 1] += 2
+            bits[j] -= 1
+            moves += 1
+    return moves
 
 
 @dataclass(frozen=True)

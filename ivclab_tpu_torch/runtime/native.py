@@ -5,8 +5,8 @@ at first use by ``cuda_build.build_host`` (``g++ -O3 -std=c++17 -shared
 -fPIC``) into the git-ignored ``csrc/_build/``, keyed by a hash of the
 source and the flags; concurrent first builds are safe (see
 ``cuda_build``). It is the host engine for the Huffman facade (serial
-pack and canonical decode), the Huffman tree's depth loop, and the serial
-zero-run oracle of the tensor paths.
+pack and canonical decode), the Huffman tree's depth loop and its length
+limit, and the serial zero-run oracle of the tensor paths.
 
 Where the engine runs:
 
@@ -15,8 +15,8 @@ Where the engine runs:
   stderr, on every call, and is never replaced by the numpy path;
 - where there is no ``g++`` at all, ``pack_bits`` and ``decode_symbols``
   take their numpy versions (``_pack_bits_np``, ``_decode_symbols_np``),
-  ``huffman_depths`` returns None (the caller runs its numpy loop), and the
-  zero-run oracles raise.
+  ``huffman_depths`` and ``limit_bits`` return None (the caller runs its
+  numpy loop), and the zero-run oracles raise.
 
 :func:`available` and :func:`unavailable_reason` say which case holds.
 """
@@ -47,6 +47,7 @@ def _load(build_dir: Path = cuda_build.BUILD_DIR):
     u32p = np.ctypeslib.ndpointer(np.uint32, flags="C_CONTIGUOUS")
     i32p = np.ctypeslib.ndpointer(np.int32, flags="C_CONTIGUOUS")
     f64p = np.ctypeslib.ndpointer(np.float64, flags="C_CONTIGUOUS")
+    i64p = np.ctypeslib.ndpointer(np.int64, flags="C_CONTIGUOUS,WRITEABLE")
     i64 = ctypes.c_int64
     i32 = ctypes.c_int32
 
@@ -60,6 +61,8 @@ def _load(build_dir: Path = cuda_build.BUILD_DIR):
     lib.ivc_zerorun_decode.argtypes = [i32p, i64, i64, i32, i32, i32p]
     lib.ivc_huffman_depths.restype = i64
     lib.ivc_huffman_depths.argtypes = [f64p, i64, i32p]
+    lib.ivc_limit_lengths.restype = i64
+    lib.ivc_limit_lengths.argtypes = [i64p, i32, i32]
     return lib, None
 
 
@@ -186,6 +189,27 @@ def huffman_depths(leaf_w_sorted: np.ndarray) -> np.ndarray | None:
     if lib.ivc_huffman_depths(w, w.size, out) != 0:
         raise ValueError("huffman_depths: need at least one leaf")
     return out
+
+
+# -------------------------------------------------------------- length limit
+
+def limit_bits(bits: np.ndarray, max_len: int) -> int | None:
+    """Rebalance a code-length histogram in place so no length exceeds
+    ``max_len``; returns the number of pair moves.
+
+    ``bits[l]`` counts the codes of length ``l`` (a C-contiguous int64
+    array, ``bits[0] == 0``). The same loop, in the same order, as
+    ``_limit_bits_np`` in ``entropy/codebook.py``; None where there is no
+    ``g++`` (the caller runs that loop). Raises ``ValueError`` where the
+    histogram cannot be limited (more codes than ``2**max_len``).
+    """
+    lib = get_lib()
+    if lib is None:
+        return None
+    moves = lib.ivc_limit_lengths(bits, bits.size - 1, max_len)
+    if moves < 0:
+        raise ValueError(f"limit_bits: more codes than 2**{max_len}")
+    return int(moves)
 
 
 # ---------------------------------------------------------------- zero-run

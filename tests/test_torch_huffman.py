@@ -30,6 +30,7 @@ import ivclab_tpu.ops.color as jcolor
 import ivclab_tpu.runtime.native as jnative
 import ivclab_tpu.utils.metrics as jmetrics
 from ivclab_tpu.entropy.codebook import huffman_code_lengths as j_code_lengths
+from ivclab_tpu.entropy.codebook import limit_code_lengths as j_limit_lengths
 from ivclab_tpu.entropy.huffman import HuffmanCoder as JHuffman
 from ivclab_tpu.models import IntraCodec as JIntra
 from ivclab_tpu.utils import fixtures as jfix
@@ -116,6 +117,65 @@ def test_huffman_depths_match_the_numpy_loop_and_jax(name):
     numpy_lengths[order] = tcb._huffman_depths_np(pmf[order])
     assert_exact(tcb.huffman_code_lengths(pmf), numpy_lengths, "native path vs numpy loop")
     assert_exact(tcb.huffman_code_lengths(pmf), j_code_lengths(pmf), "port vs JAX lengths")
+
+
+def _residual_pmf(bins: int, seed: int) -> np.ndarray:
+    """A frame's smoothed training pmf: a Laplacian residual histogram over
+    the alphabet ``[4001 - bins, 4000]`` and 32,640 end-of-block symbols at
+    its top bin (EOB 4000), as the adaptive codec's bucketed alphabets hold."""
+    rng = np.random.default_rng(seed)
+    vals = np.arange(4001 - bins, 4001)
+    hist = np.round(rng.uniform(1e3, 1e5) * np.exp(-np.abs(vals) / rng.uniform(1.5, 12.0)))
+    hist[-1] += 32640
+    return tstats.pmf_from_histogram(hist.astype(np.int64)).astype(np.float64)
+
+
+def _limit_cases():
+    cases = [pytest.param(_residual_pmf(bins, bins), max_len, id=f"residual{bins}-{max_len}")
+             for bins in (4096, 4416, 6144, 8256) for max_len in (16, 26, 32)]
+    cases += [pytest.param(_pmfs()["skewed"], max_len, id=f"skewed-{max_len}")
+              for max_len in (16, 26, 32)]
+    return cases + [pytest.param(_pmfs()["ties"], 26, id="within"),
+                    pytest.param(np.ones(1), 26, id="one"),
+                    pytest.param(_pmfs()["two"], 1, id="two")]
+
+
+@pytest.mark.parametrize("pmf,max_len", _limit_cases())
+def test_limit_lengths_match_the_numpy_loop_and_jax(pmf, max_len, monkeypatch):
+    lengths = tcb.huffman_code_lengths(pmf)
+    limited = tcb.limit_code_lengths(lengths, max_len)
+    assert_exact(limited, j_limit_lengths(lengths, max_len), "C++ path vs JAX lengths")
+    with monkeypatch.context() as m:
+        m.setattr(tnative, "limit_bits", lambda bits, max_len: None)
+        assert_exact(tcb.limit_code_lengths(lengths, max_len), limited, "numpy loop vs C++ path")
+    assert limited.max() <= max_len
+    assert limited.size < 2 or np.sum(2.0 ** -limited) == 1.0  # Kraft equality
+    top = int(lengths.max())
+    if top <= max_len:
+        assert_exact(limited, lengths, "within the limit: unchanged")
+        return
+    bits = np.bincount(lengths, minlength=top + 1).astype(np.int64)
+    bits_np = bits.copy()
+    moves = tnative.limit_bits(bits, max_len)
+    assert moves == tcb._limit_bits_np(bits_np, max_len) > 0
+    assert_exact(bits, bits_np, "C++ vs numpy histogram")
+    assert bits[max_len + 1:].sum() == 0
+
+
+@pytest.mark.parametrize("path", ["native", "numpy"])
+def test_more_symbols_than_the_limit_holds_are_refused(path, monkeypatch):
+    if path == "numpy":
+        monkeypatch.setattr(tnative, "limit_bits", lambda bits, max_len: None)
+    lengths = tcb.huffman_code_lengths(np.full(17, 1 / 17))  # 17 codes, 2**4 = 16
+    with pytest.raises(ValueError):
+        tcb.limit_code_lengths(lengths, 4)
+    sixteen = tcb.huffman_code_lengths(2.0 ** -np.arange(16))
+    assert_exact(tcb.limit_code_lengths(sixteen, 4), np.full(16, 4), "2**4 codes of 4 bits")
+    # the loop itself, past the up-front check: no leaf is left to split
+    bits = np.bincount(lengths).astype(np.int64)
+    limit = tnative.limit_bits if path == "native" else tcb._limit_bits_np
+    with pytest.raises(ValueError):
+        limit(bits, 4)
 
 
 def test_zerorun_oracles_match_jax():

@@ -24,9 +24,11 @@ from ivclab_tpu.ops.color import rgb2ycbcr as j_rgb2ycbcr
 from ivclab_tpu.runtime.checkpoint import GopCheckpointer as JaxCheckpointer
 from ivclab_tpu.utils import fixtures
 
+import ivclab_tpu_torch.entropy.codebook as tcb
 import ivclab_tpu_torch.models.videocodec as tvc
 import ivclab_tpu_torch.ops.transform as ttr
 from ivclab_tpu_torch import IntraCodec, MotionCompensator, VideoCodec, calc_psnr
+from ivclab_tpu_torch.runtime import trace
 from ivclab_tpu_torch.runtime.checkpoint import GopCheckpointer
 
 POLICIES = ("per-frame", "adaptive", "first-p-frame")
@@ -102,6 +104,38 @@ def test_encode_to_container_refusals(luma_video, jax_containers):
     bad[0] ^= 0xFF
     with pytest.raises(ValueError):
         VideoCodec.decode_from_container(bytes(bad), device="cpu")
+
+
+def test_a_traced_encode_limits_its_codes_in_the_native_engine(monkeypatch):
+    """Each frame whose Huffman lengths pass 26 bits is limited by the C++
+    engine, counted inside its ``ivc.codebook.limit`` span; the bytes stay
+    JAX's. At 256x480 three of the four frames' codes pass 26 bits."""
+    frames = _luma(fixtures.video("container", num_frames=4, shape=(256, 480)))
+    want = JaxVideo(1.0, codebook_policy="per-frame").encode_to_container(frames)
+    depths, lengths_of = [], tcb.huffman_code_lengths
+
+    def recorded(pmf):
+        out = lengths_of(pmf)
+        depths.append(int(out.max()))
+        return out
+
+    monkeypatch.setattr(tcb, "huffman_code_lengths", recorded)
+    trace.enable()
+    try:
+        blob = VideoCodec(1.0, codebook_policy="per-frame", device="cpu").encode_to_container(
+            frames)
+        limits = [s for r in trace.requests() for s in r["spans"]
+                  if s["name"] == "ivc.codebook.limit"]
+        counts = trace.summary()["counts"]
+    finally:
+        trace.disable()
+        trace.reset()
+    assert blob == want
+    over = sum(d > tcb.BUILD_MAX_LEN for d in depths)  # the motion code's 7 bits never pass
+    assert len(limits) == len(depths) and over > 0
+    assert counts["limit_native"] == over and counts["limit_moves"] > 0
+    assert sum(s["counts"].get("limit_native", 0) for s in limits) == over
+    assert sum(s["counts"].get("limit_moves", 0) for s in limits) == counts["limit_moves"]
 
 
 def test_stream_histogram_matches_jax_on_both_branches():
