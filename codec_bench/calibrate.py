@@ -12,7 +12,9 @@ bfloat16. In the stream cells the control codes each kept GOP itself (its
 own motion search, symbols, codebook and decoder chain); in the decode
 cells it decodes the set-up's containers itself, and ``encoder`` puts it
 in the set-up encoder's place. ``stale_code`` plants a stale codebook in
-the full-precision reference. Every seed runs in this one process.
+the full-precision reference. A codec judge that owns its numbers
+(``NUMBERS``) makes its own control of each kind (``judge.control``).
+Every seed runs in this one process.
 
     python3 codec_bench/calibrate.py --workload fused_1080p.stream \\
         --seeds 11,12,13 --control-seeds 21,22,23 --seconds 3
@@ -39,23 +41,28 @@ def control_numbers(manifest: Path, workload: str, seed: int, device: str,
     path's place (a decode loop's decoder; a round trip's whole coder);
     ``encoder``: the same control in the encoder's place (a decode loop's
     set-up); ``stale_code``: the full-precision reference whose codebook is
-    stale (the codec judge's ``rates(..., stale=True)``).
+    stale (the codec judge's ``rates(..., stale=True)``). A judge that owns
+    its numbers gives the kept units of each kind itself:
+    ``judge.control(kind, cell, gops, clip, picks, device)``.
     """
     import numpy as np
     import torch
 
-    from codec_bench import checks, content, harness
+    from codec_bench import checks, harness
     from codec_bench.reference import codec as ref
 
     cell = harness.Cell(manifest, workload)
     cfg, mix, judge = cell.cfg, cell.traffic, cell.judge
     dev = torch.device(device)
-    T, n, sr = cfg["T"], mix["clip_gops"], cfg["sr"]
-    clip = content.clip(seed, n * T, cfg["H"], cfg["W"], dev)
-    gops = [clip[g * T:(g + 1) * T].contiguous() for g in range(n)]
+    n = mix["clip_gops"]
+    clip, gops = cell.input.make(seed, cfg, n, dev)
     rng = np.random.default_rng(seed)
     picks = sorted(int(i) % n for i in rng.choice(np.arange(2, mix["check_within"]),
                                                    size=mix["check_gops"], replace=False))
+    if hasattr(judge, "NUMBERS"):
+        kept = judge.control(kind, cell, gops, clip, picks, dev)
+        return checks.judge_kept(judge, kept, gops, None, cfg, clip, dev)
+    T, sr = cfg["T"], cfg["sr"]
     kept = []
     if kind == "control" and cell.loop.CONTAINERS:
         # the program's containers, decoded by the control

@@ -6,6 +6,11 @@ The reference reads the program's outputs only to judge them: the symbols,
 motion and decoded frames a round trip returned, and containers through
 the configuration's codec judge (``codec/<codec>/judge.py``: a plain reader
 of its bytes, and the frame rates under the reference's own codebooks).
+
+A judge that defines ``NUMBERS`` (the names it reads) and ``numbers(src,
+entry, parsed, cfg, device)`` (their readings for one kept unit) owns its
+check: the harness takes the worst of each over the kept units. Any other
+judge is a luma GOP codec's, judged by the four numbers of ``VIDEO``.
 """
 
 from __future__ import annotations
@@ -19,8 +24,8 @@ import torch
 from codec_bench.reference import judge as numbers
 from codec_bench.reference import codec as ref
 
-BROKEN = {"me_gap": math.inf, "quant_excess": math.inf, "recon_gap": math.inf,
-          "rate_gap": math.inf}
+VIDEO = ("me_gap", "quant_excess", "recon_gap", "rate_gap")
+BROKEN = dict.fromkeys(VIDEO, math.inf)
 
 
 def parse(judge, blob: bytes, device, with_walks: bool = False) -> dict:
@@ -39,8 +44,12 @@ def judge_kept(judge, kept: list[dict], gops: list[torch.Tensor], blobs: list[by
     Each kept GOP holds ``gop`` (its index in the clip), ``recons`` (the
     frames the program decoded) and either the round trip's ``qsyms``,
     ``mvs`` and ``totals`` (per-frame bits), its container ``blob``, or
-    nothing more (the container is the set-up's, ``blobs[gop]``)."""
+    nothing more (the container is the set-up's, ``blobs[gop]``). A judge
+    that owns its numbers reads each kept GOP as it is, with its parsed
+    container where it has one."""
     dev = torch.device(device)
+    if hasattr(judge, "NUMBERS"):
+        return _own_numbers(judge, kept, gops, blobs, cfg, dev)
     tr = ref.Transform(cfg["q"], dev)
     rates = judge.rates(clip, cfg, dev)
     readings = []
@@ -62,6 +71,22 @@ def judge_kept(judge, kept: list[dict], gops: list[torch.Tensor], blobs: list[by
         nums = numbers.gop_numbers(src, qsyms, mvs, decoded, tr, cfg["sr"])
         nums["rate_gap"] = numbers.rate_gap(program_bits, rates(tokens))
         readings.append(nums)
+    return numbers.worst(readings)
+
+
+def _own_numbers(judge, kept, units, blobs, cfg, dev) -> dict:
+    """The worst of each of ``judge.NUMBERS`` over the kept units; a unit
+    whose container cannot be parsed, or a name the judge leaves out,
+    reads inf."""
+    readings = []
+    for k in kept:
+        blob = k["blob"] if "blob" in k else blobs[k["gop"]] if blobs else None
+        parsed = None if blob is None else parse(judge, blob, dev)
+        if parsed is not None and not parsed["good"]:
+            nums = {}
+        else:
+            nums = judge.numbers(units[k["gop"]].to(dev), k, parsed, cfg, dev)
+        readings.append({n: nums.get(n, math.inf) for n in judge.NUMBERS})
     return numbers.worst(readings)
 
 

@@ -4,9 +4,12 @@ Everything a cell is made of is found by its name in ``BENCHMARK.json``,
 under ``codec_bench/`` beside the manifest: the configuration's file (its
 ``file``) and the codec it names (``codec/<codec>/program.py``, the calls
 into the port; ``codec/<codec>/judge.py``, the reference's side of its
-check), the traffic mix ``traffic/<traffic>.json`` and the loop it names
-(``loops/<loop>.py``), the limits of its check ``limits/<cell>.json`` and
-each per-layer metric's reader ``metrics/<metric>.py``. The window's loop
+check) and its input kind (``inputs/<input>.py``; ``luma_gops`` where it
+names none), the traffic mix ``traffic/<traffic>.json`` and the loop it
+names (``loops/<loop>.py``), the limits of its check
+``limits/<cell>.json`` and each per-layer metric's reader
+``metrics/<metric>.py``. A GOP below is the unit the input kind makes and
+a step codes: a GOP of frames, or a still image. The window's loop
 is closed: GOP i+1 is dispatched before the host waits on GOP i's
 completion event (the mix's ``depth`` GOPs in flight), GOPs cycle through
 the clip, and every ``ok`` flag stays on the device until the window has
@@ -28,7 +31,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from codec_bench import checks, content, trace
+from codec_bench import checks, trace
 
 FORBIDDEN = ("jax", "jaxlib", "flax", "ivclab_tpu")
 
@@ -82,6 +85,8 @@ class Cell:
         codec = bench / "codec" / self.cfg["codec"]
         self.program = load(codec / "program.py", f"{self.cfg['codec']}_program").Program
         self.judge = load(codec / "judge.py", f"{self.cfg['codec']}_judge")
+        kind = self.cfg.get("input", "luma_gops")
+        self.input = load(bench / "inputs" / f"{kind}.py", f"input_{kind}")
         self.loop = load(bench / "loops" / f"{self.traffic['loop']}.py", self.traffic["loop"])
         self.per_layer = [m for m in self.manifest["per_layer"]
                           if workload in m.get("workloads", [workload])]
@@ -185,12 +190,10 @@ def run(manifest_path, workload: str, seed: int, seconds: float, trace_on: bool,
     cfg, mix = cell.cfg, cell.traffic
     dev = torch.device(device)
     cuda = dev.type == "cuda"
-    T, H, W = cfg["T"], cfg["H"], cfg["W"]
     n_clip = mix["clip_gops"]
 
     # ---------------------------------------------------------------- set-up
-    clip = content.clip(seed, n_clip * T, H, W, dev)
-    gops = [clip[g * T:(g + 1) * T].contiguous() for g in range(n_clip)]
+    clip, gops = cell.input.make(seed, cfg, n_clip, dev)
     spans = Spans()
     prog = cell.program(cfg, dev, spans)
     prog.prepare(clip, gops)
@@ -281,7 +284,7 @@ def run(manifest_path, workload: str, seed: int, seconds: float, trace_on: bool,
     checked, correct = verdict(numbers, cell.limits, failed)
 
     # ---------------------------------------------------------------- metrics
-    gop_pixels = T * H * W
+    gop_pixels = cfg.get("T", 1) * cfg["H"] * cfg["W"]
     device_info = {"platform": "gpu" if cuda else "cpu",
                    "kind": torch.cuda.get_device_name(dev) if cuda else "cpu",
                    "count": 1, "memory_peak_bytes": peak}

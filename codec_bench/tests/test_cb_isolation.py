@@ -1,5 +1,6 @@
 """What the benchmark's command loads: never JAX nor the JAX package, the
-reference nothing of the program; no card, no result."""
+reference and the input kinds nothing of the program; no card, no
+result."""
 
 import json
 import os
@@ -41,8 +42,10 @@ import sys
 sys.path.insert(0, {str(ROOT)!r})
 import codec_bench.reference.codec, codec_bench.reference.bitstream, codec_bench.reference.judge
 from codec_bench import checks, harness
-for judge in sorted(harness.Path({str(ROOT)!r}).glob("codec_bench/codec/*/judge.py")):
-    harness.load(judge, judge.parent.name + "_judge")
+root = harness.Path({str(ROOT)!r})
+for f in sorted([*root.glob("codec_bench/codec/*/judge.py"),
+                 *root.glob("codec_bench/inputs/*.py")]):
+    harness.load(f, f.parent.name + "_" + f.stem)
 print(sorted({{m.split('.')[0] for m in sys.modules}} & {{'ivclab_tpu_torch', 'ivclab_tpu', 'jax', 'jaxlib'}}))
 """
     p = _py(code)

@@ -8,7 +8,7 @@ import shutil
 
 import pytest
 
-from codec_bench import harness
+from codec_bench import checks, harness
 from codec_bench.tests.tiny import ROOT
 
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -60,11 +60,21 @@ def test_names_units_and_keys():
 
 @pytest.mark.parametrize("cell", CELLS)
 def test_cell_files_resolve(cell):
+    """Each cell's files load, and its limits name exactly the numbers its
+    judge reads: the judge's ``NUMBERS``, or the four video numbers of a
+    luma GOP codec's judge."""
     c = harness.Cell(ROOT / "BENCHMARK.json", cell)
-    assert {"codec", "H", "W", "T", "q", "sr", "source", "assumed", "reduced"} <= set(c.cfg)
-    assert callable(c.program) and callable(c.judge.parse) and callable(c.judge.rates)
+    keys = {"codec", "H", "W", "q", "source", "assumed", "reduced"}
+    if hasattr(c.judge, "NUMBERS"):
+        assert callable(c.judge.numbers) and callable(c.judge.control)
+        assert set(c.limits) == set(c.judge.NUMBERS)
+    else:
+        keys |= {"T", "sr"}
+        assert callable(c.judge.parse) and callable(c.judge.rates)
+        assert set(c.limits) == set(checks.VIDEO)
+    assert keys <= set(c.cfg)
+    assert callable(c.program) and callable(c.input.make)
     assert callable(c.loop.build) and isinstance(c.loop.CONTAINERS, bool)
-    assert set(c.limits) == {"me_gap", "quant_excess", "recon_gap", "rate_gap"}
     assert any(m["name"] == "setup_s" for m in c.end_to_end) and len(c.end_to_end) >= 2
     assert c.per_layer
     for name, path in c.metric_files.items():
@@ -124,10 +134,12 @@ def test_a_new_config_mix_and_metric_are_files_of_their_own(tiny, tmp_path):
     assert c["rate_gap"]["value"] < 0.01
 
 
-@pytest.mark.parametrize("key,value", [("loop", "nonesuch"), ("codec", "NoSuchCodec")])
+@pytest.mark.parametrize("key,value", [("loop", "nonesuch"), ("codec", "NoSuchCodec"),
+                                       ("input", "no_such_input")])
 def test_a_name_with_no_file_is_refused(tiny, key, value):
-    """A mix naming a loop, or a configuration naming a codec, that has no
-    file stops the run before set-up: nothing falls through to another."""
+    """A mix naming a loop, or a configuration naming a codec or an input
+    kind, that has no file stops the run before set-up: nothing falls
+    through to another."""
     bench = tiny.parent / "codec_bench"
     path = bench / ("traffic/stream.json" if key == "loop" else "configs/fused_1080p.json")
     data = json.loads(path.read_text())

@@ -17,7 +17,7 @@ def tiny_root(tmp: Path, seconds_limits: dict | None = None) -> Path:
     """Copy the manifest and the folders found by name to ``tmp`` with tiny frames;
     returns the manifest's path."""
     manifest = json.loads((ROOT / "BENCHMARK.json").read_text())
-    for sub in ("traffic", "limits", "metrics", "loops", "codec"):
+    for sub in ("traffic", "limits", "metrics", "loops", "codec", "inputs"):
         shutil.copytree(BENCH / sub, tmp / "codec_bench" / sub,
                         ignore=shutil.ignore_patterns("__pycache__"))
     (tmp / "codec_bench" / "configs").mkdir(parents=True)
