@@ -22,6 +22,12 @@ Differences from the course reference, kept from the JAX package:
 - Grayscale inputs are quantized with the luminance table only.
 - Training bounds are bucketed to multiples of 64 (the reference's +/-20
   margin is kept inside the bucket).
+
+A symbol outside the trained alphabet is clamped to its edge by the pack,
+as in the JAX package: the stream then decodes to another symbol. A
+codebook trained with ``bounds=codec.full_bounds()`` spans every symbol an
+8-bit image can produce, so no image is clamped; its bytes differ from the
+default training's (and from the JAX package's, which has no such bounds).
 """
 
 from __future__ import annotations
@@ -35,8 +41,8 @@ from ivclab_tpu_torch.entropy.codebook import CanonicalCode, canonical_from_leng
 from ivclab_tpu_torch.entropy.huffman import HuffmanCoder
 from ivclab_tpu_torch.entropy.stats import pmf_from_histogram
 from ivclab_tpu_torch.ops.bitpack import decode_blocks_device, decode_tables
-from ivclab_tpu_torch.ops.color import rgb2ycbcr, ycbcr2rgb
-from ivclab_tpu_torch.ops.dct import require_full_fp32
+from ivclab_tpu_torch.ops.color import _RGB2YCBCR, _YCBCR_OFFSET, rgb2ycbcr, ycbcr2rgb
+from ivclab_tpu_torch.ops.dct import dct2_kron_matrix, require_full_fp32
 from ivclab_tpu_torch.ops.quant import quant_table_zigzag
 from ivclab_tpu_torch.ops.transform import (
     GROUP_WORDS,
@@ -55,6 +61,7 @@ from ivclab_tpu_torch.ops.zerorun import (
     zerorun_decode_stream,
 )
 from ivclab_tpu_torch.runtime import container as ct
+from ivclab_tpu_torch.runtime.trace import fetch, span
 from ivclab_tpu_torch.utils.shape import upload
 
 _BOUND_BUCKET = 64
@@ -216,9 +223,15 @@ class IntraCodec:
         self._enc_lens = torch.from_numpy(code.lengths.astype(np.int64)).to(self.device)
         self._dec_tables = decode_tables(code, self.device)
 
-    def _train_from_buffers(self, buf, valid_len):
+    def _train_from_buffers(self, buf, valid_len, bounds=None):
         mn, mx = _sym_min_max(buf, valid_len)
-        lo, hi = bucket_bounds(int(mn), int(mx))
+        if bounds is None:
+            lo, hi = bucket_bounds(int(mn), int(mx))
+        else:
+            lo, hi = int(bounds[0]), int(bounds[1])
+            if not lo <= int(mn) <= int(mx) < hi:
+                raise ValueError(f"training symbols [{int(mn)}, {int(mx)}] outside "
+                                 f"the bounds [{lo}, {hi})")
         self.bounds = (lo, hi)
         # the pmf is built on the host from the exact integer histogram, so
         # its float32 values (and the tree) are the same on every device
@@ -227,12 +240,38 @@ class IntraCodec:
         self._install_code(huffman.code, huffman)
         return self.huffman
 
-    def train_huffman_from_image(self, training_img, is_source_rgb: bool = True):
-        """Symbolize, histogram, and build the canonical codebook."""
+    def train_huffman_from_image(self, training_img, is_source_rgb: bool = True, bounds=None):
+        """Symbolize, histogram, and build the canonical codebook.
+
+        The alphabet is the image's symbol range widened and bucketed
+        (:func:`bucket_bounds`), or ``bounds`` ``[lo, hi)`` where given,
+        which must hold every training symbol."""
         x, _ = self._prepare(training_img, is_source_rgb)
         buf, valid_len, _ = self._symbolize(x)
-        self._train_from_buffers(buf, valid_len)
+        self._train_from_buffers(buf, valid_len, bounds)
         return None
+
+    def full_bounds(self, is_source_rgb: bool = True) -> tuple[int, int]:
+        """Bucketed bounds ``[lo, hi)`` around every symbol an image of
+        levels in [0, 255] can produce under this codec's tables: each
+        plane's level range (YCbCr of the RGB cube for RGB sources) through
+        each DCT basis function's positive and negative parts, over its
+        step, with the EOB and zero-run symbols; widened as training widens
+        its range."""
+        if is_source_rgb:
+            m = _RGB2YCBCR.astype(np.float64)
+            lo_px = np.minimum(m, 0).sum(1) * 255 + _YCBCR_OFFSET
+            hi_px = np.maximum(m, 0).sum(1) * 255 + _YCBCR_OFFSET
+        else:
+            lo_px, hi_px = np.zeros(1), np.full(1, 255.0)
+        K = dct2_kron_matrix(8)  # scan-ordered rows
+        pos, neg = np.maximum(K, 0).sum(1), np.minimum(K, 0).sum(1)
+        steps = quant_table_zigzag(self.quantization_scale, lo_px.size).astype(np.float64)
+        cmax = (pos[None] * hi_px[:, None] + neg[None] * lo_px[:, None]) / steps
+        cmin = (pos[None] * lo_px[:, None] + neg[None] * hi_px[:, None]) / steps
+        mn = min(int(np.floor(cmin.min())), 0)
+        mx = max(int(np.ceil(cmax.max())), self.end_of_block, 64)
+        return bucket_bounds(mn, mx)
 
     def _require_code(self) -> CanonicalCode:
         if self.huffman is None or self.huffman.code is None:
@@ -297,59 +336,91 @@ class IntraCodec:
 
     def encode_to_container(self, img, is_source_rgb: bool = True) -> bytes:
         """Encode to a self-contained IVC1 byte stream (shape, codebook,
-        symbol count and the parallel-decode sidecar all included)."""
+        symbol count and the parallel-decode sidecar all included).
+
+        Runs inside the span ``ivc.intra.encode`` (device time on a card)
+        with three children: ``ivc.intra.symbolize`` (colour, transform,
+        quantiser, zero-run, block padding), ``ivc.intra.pack`` (the grouped
+        pack, the symbol count and group bits read back, the offset rebase)
+        and ``ivc.intra.serialize`` (the words, offsets and counts read back
+        and the bytes). Each of its five host reads is an ``ivc.fetch``."""
         code = self._require_code()
-        x, orig_shape = self._prepare(img, is_source_rgb)
-        buf, valid_len, _ = self._symbolize(x)
-        buf, valid_len, _ = _pad_blocks(buf, valid_len)
-        group_words, group_bits, block_offsets, _ = pack_symbols_grouped(
-            buf, valid_len, self._enc_codes, self._enc_lens, code.lower_bound)
-        self.num_symbols = int(valid_len.sum())
-        # slice the section to the used words (8-aligned) and rebase the
-        # offsets to that stride, so the decoder never materializes the
-        # mostly empty full-stride rows
-        gb_np = group_bits.cpu().numpy()
-        wmax = ct.packer_wmax(gb_np, GROUP_WORDS)
-        G = gb_np.shape[0]
-        rebase = torch.arange(G, device=self.device).repeat_interleave(PACK_GROUP) * (
-            (GROUP_WORDS - wmax) * 32)
-        payload = ct.grouped_payload_from_device(
-            kind=ct.KIND_INTRA if len(orig_shape) == 3 else ct.KIND_PLANE,
-            shape=orig_shape,
-            q=self.quantization_scale,
-            eob=self.end_of_block,
-            num_symbols=self.num_symbols,
-            group_words=group_words[:, :wmax],
-            group_bits=gb_np,
-            block_offsets=block_offsets.to(torch.int64) - rebase,
-            block_counts=valid_len,
-            codebook=ct.Codebook(code.lower_bound, np.asarray(code.lengths, dtype=np.uint8)),
-            words_per_group=wmax,
-            group_size=PACK_GROUP,
-        )
-        return payload.to_bytes()
+        with span("ivc.intra.encode", device=self.device):
+            with span("ivc.intra.symbolize"):
+                x, orig_shape = self._prepare(img, is_source_rgb)
+                buf, valid_len, _ = self._symbolize(x)
+                buf, valid_len, _ = _pad_blocks(buf, valid_len)
+            with span("ivc.intra.pack"):
+                group_words, group_bits, block_offsets, _ = pack_symbols_grouped(
+                    buf, valid_len, self._enc_codes, self._enc_lens, code.lower_bound)
+                self.num_symbols = int(fetch(valid_len.sum()))
+                # slice the section to the used words (8-aligned) and rebase the
+                # offsets to that stride, so the decoder never materializes the
+                # mostly empty full-stride rows
+                gb_np = fetch(group_bits).numpy()
+                wmax = ct.packer_wmax(gb_np, GROUP_WORDS)
+                G = gb_np.shape[0]
+                rebase = torch.arange(G, device=self.device).repeat_interleave(PACK_GROUP) * (
+                    (GROUP_WORDS - wmax) * 32)
+                offsets = block_offsets.to(torch.int64) - rebase
+            with span("ivc.intra.serialize"):
+                payload = ct.grouped_payload_from_device(
+                    kind=ct.KIND_INTRA if len(orig_shape) == 3 else ct.KIND_PLANE,
+                    shape=orig_shape,
+                    q=self.quantization_scale,
+                    eob=self.end_of_block,
+                    num_symbols=self.num_symbols,
+                    group_words=group_words[:, :wmax],
+                    group_bits=gb_np,
+                    block_offsets=offsets,
+                    block_counts=valid_len,
+                    codebook=ct.Codebook(code.lower_bound,
+                                         np.asarray(code.lengths, dtype=np.uint8)),
+                    words_per_group=wmax,
+                    group_size=PACK_GROUP,
+                )
+                return payload.to_bytes()
 
     @staticmethod
-    def decode_from_container(data: bytes, device: str | torch.device = "cuda") -> torch.Tensor:
-        """Decode an IVC1 byte stream with a fresh codec on ``device``."""
-        payload = ct.IntraPayload.from_bytes(data)
-        codec = IntraCodec(quantization_scale=payload.quantization_scale,
-                           end_of_block=payload.eob, device=device)
-        code = payload.codebook.canonical()
-        hp, wp, C = codec._padded_grid(payload.shape)
-        qt, _ = codec._tables(C)
-        words, offs, counts = ct.device_views(payload, codec.device)
-        # the walk's depth is bucketed from the sidecar's largest block
-        cap = cap_slice(int(payload.block_counts.max(initial=1)), BLOCK_CAP)
-        sym_idx = decode_blocks_device(words, offs, counts, decode_tables(code, codec.device), cap)
-        n_real = hp * wp * C
-        in_count = torch.arange(cap, device=codec.device)[None, :] < counts[:, None]
-        syms = torch.where(in_count, sym_idx + code.lower_bound, 0)[:n_real]
-        blocks, ok = zerorun_decode_blocks(syms, counts[:n_real], 64, payload.eob)
-        if not bool(ok):
-            raise ValueError("container decode failed: corrupt stream")
-        recon = inverse_reconstruct(blocks, qt, (hp * 8, wp * 8, C))
-        return codec._finalize(recon, payload.shape)
+    def decode_from_container(data: bytes, device: str | torch.device = "cuda",
+                              return_device: bool = False):
+        """Decode an IVC1 byte stream with a fresh codec on ``device``.
+
+        Returns the reconstruction and raises ``ValueError`` on a corrupt
+        stream, which reads the validity flag back to the host.
+        ``return_device=True`` returns ``(reconstruction, ok)``, ``ok`` a
+        0-d bool tensor on the device, and makes no host synchronisation.
+
+        Runs inside the span ``ivc.intra.decode`` with the video decodes'
+        four phases: ``ivc.decode.parse``, ``ivc.decode.tables`` (canonical
+        code, decode and quantiser tables), ``ivc.decode.upload`` (the
+        section's device views) and ``ivc.decode.enqueue`` (walk, zero-run,
+        inverse transform, colour)."""
+        with span("ivc.intra.decode"):
+            with span("ivc.decode.parse"):
+                payload = ct.IntraPayload.from_bytes(data)
+            codec = IntraCodec(quantization_scale=payload.quantization_scale,
+                               end_of_block=payload.eob, device=device)
+            with span("ivc.decode.tables"):
+                code = payload.codebook.canonical()
+                hp, wp, C = codec._padded_grid(payload.shape)
+                qt, _ = codec._tables(C)
+                tables = decode_tables(code, codec.device)
+            with span("ivc.decode.upload"):
+                words, offs, counts = ct.device_views(payload, codec.device)
+            with span("ivc.decode.enqueue"):
+                # the walk's depth is bucketed from the sidecar's largest block
+                cap = cap_slice(int(payload.block_counts.max(initial=1)), BLOCK_CAP)
+                sym_idx = decode_blocks_device(words, offs, counts, tables, cap)
+                n_real = hp * wp * C
+                in_count = torch.arange(cap, device=codec.device)[None, :] < counts[:, None]
+                syms = torch.where(in_count, sym_idx + code.lower_bound, 0)[:n_real]
+                blocks, ok = zerorun_decode_blocks(syms, counts[:n_real], 64, payload.eob)
+                if not return_device and not bool(fetch(ok)):
+                    raise ValueError("container decode failed: corrupt stream")
+                recon = inverse_reconstruct(blocks, qt, (hp * 8, wp * 8, C))
+                recon = codec._finalize(recon, payload.shape)
+            return (recon, ok) if return_device else recon
 
     def encode_decode(self, img, return_bpp: bool = False, is_source_rgb: bool = True,
                       verify_entropy: bool = False):
