@@ -8,8 +8,9 @@ PyTorch built for CUDA and the CUDA toolkit:
 It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
 
 1. device and build: requires CUDA, prints the card's name and power
-   limit, builds ``ivclab_tpu_torch/csrc/motion_search.cu`` and
-   ``ivclab_tpu_torch/csrc/decode_walk.cu`` with nvcc (one process each,
+   limit, builds ``ivclab_tpu_torch/csrc/motion_search.cu``,
+   ``ivclab_tpu_torch/csrc/decode_walk.cu`` and
+   ``ivclab_tpu_torch/csrc/grouped_pack.cu`` with nvcc (one process each,
    started together; ptxas's registers, shared memory and spills of every
    kernel printed, none may spill) and checks that TF32 is off;
 2. kernel vs plain: the motion-search kernel against its plain PyTorch
@@ -173,8 +174,18 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    return_device=True)`` at 1080p: wall ms, a profile (launches, device
    ms, busy share), their canonical walk launches (1, 1 and 1 + T) and
    their host syncs at their ``file:line``, of which only the intra
-   container decode's ``bool(ok)`` (JAX's ``decode_from_container`` reads
-   it too) may remain.
+   container decode's read of its ``ok`` flag (one, through ``trace.fetch``;
+   JAX's ``decode_from_container`` reads it too) may remain;
+17. the grouped-pack kernel (``csrc/grouped_pack.cu``,
+   ``pack_codes_grouped_dense``) against its plain PyTorch version on the
+   card, every output bit for bit: phase 4's 1080p GOP deposit (captured at
+   ``pack_gop``'s call) at its buckets, at the widest and at the smallest
+   (blocks and groups overflowed, the arena wrapped), and seeded random
+   codes with lengths 0-32 and uncoded slots between coded ones (the slot
+   limit's second launch) with int32 and int64 lengths; bad arguments
+   refused; its launches over phases 2-16; the kernel's time on the 1080p
+   deposit (CUDA events around 50 warm launches) beside
+   ``utils/timing.py::grouped_pack_bound`` and the plain version's.
 
 The line before the last is a JSON list of the kernels with their launch
 counts over every main path above, times and bounds (the wide kernel's
@@ -192,7 +203,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 
 SEED = 20261016
-KERNEL_SOURCES = ("motion_search", "decode_walk")  # ivclab_tpu_torch/csrc/<name>.cu
+KERNEL_SOURCES = ("motion_search", "decode_walk", "grouped_pack")  # ivclab_tpu_torch/csrc/<name>.cu
 # the walks' adversarial bound tables (fixtures.prefix_bounds): (kind, min_len, max_len)
 HOT_ADVERSARIAL = [("unsorted", 1, 16), ("duplicate", 1, 16), ("wild", -3, 16),
                    ("inside", 20, 16), ("clustered", 1, 32), ("edges", 1, 32), ("inside", -3, 1),
@@ -1450,6 +1461,92 @@ def walk_phase(dev, card: str, blob: bytes, decode_once):
     return err, ms, plain, bound
 
 
+def pack_phase(dev, card: str, codec, qsyms):
+    """Phase 17: the grouped-pack kernel against its plain version on the
+    card (see the module doc). ``codec`` and ``qsyms`` are phase 4's codec
+    and GOP symbols. Returns (largest difference, the kernel's ms and the
+    plain version's ms on the 1080p GOP's deposit, its bound)."""
+    import numpy as np
+    import torch
+
+    from ivclab_tpu_torch.models import fastvideo
+    from ivclab_tpu_torch.ops import bitpack
+    from ivclab_tpu_torch.ops.transform import PACK_GROUP
+    from ivclab_tpu_torch.utils.timing import cuda_ms, grouped_pack_bound
+
+    launches = bitpack.PACK_LAUNCHES
+    print(f"[pack17] grouped-pack kernel launches over phases 2-16: {launches}")
+    check(launches > 0, "no main path launched the grouped-pack kernel")
+    calls = []
+    real = fastvideo.pack_grouped_sized
+
+    def spy(codes, lens, gw, bw):
+        calls.append((codes, lens, gw, bw))
+        return real(codes, lens, gw, bw)
+
+    fastvideo.pack_grouped_sized = spy
+    try:
+        codec.pack_gop(qsyms, check=False)
+    finally:
+        fastvideo.pack_grouped_sized = real
+    check(len(calls) == 1, f"pack_gop deposited {len(calls)} times, not once")
+    codes, lens, gw, bw = calls[0]
+    rng = np.random.default_rng(SEED + 17)
+    N_r, S_r = 32768, 128
+    r_lens = rng.integers(0, 33, (N_r, S_r)) * (rng.random((N_r, S_r)) < 0.5)
+    r_codes = torch.from_numpy(rng.integers(0, 2**32, (N_r, S_r))).to(dev)
+    cases = [(f"1080p GOP at its buckets wpg {gw} bw {bw}", (codes, lens, PACK_GROUP, gw, bw)),
+             ("1080p GOP at the widest buckets", (codes, lens, PACK_GROUP, 2048, 128)),
+             ("1080p GOP at the smallest buckets (overflowed, wrapped)",
+              (codes, lens, PACK_GROUP, 64, 4)),
+             ("random lengths 0-32 with holes, int32", (r_codes, torch.from_numpy(r_lens).to(
+                 dev, torch.int32), PACK_GROUP, 1600, 128)),
+             ("random lengths 0-32 with holes, int64, wrapped", (r_codes, torch.from_numpy(
+                 r_lens).to(dev), PACK_GROUP, 64, 8))]
+    err = 0
+    for label, args in cases:
+        got = bitpack.pack_codes_grouped_dense_cuda(*args)
+        want = bitpack.pack_codes_grouped_dense_plain(*args)
+        torch.cuda.synchronize()
+        bad = [int((g.long() != w.long()).sum()) for g, w in zip(got, want)]
+        err = max([err] + [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)])
+        print(f"[pack17] {label}: N={args[0].shape[0]} S={args[0].shape[1]}: words, group bits, "
+              f"offsets differing {bad}")
+        check(not any(bad), f"grouped-pack kernel != plain: {label}")
+    before = bitpack.PACK_LAUNCHES
+    for name, bad_args in (("a float code", (codes.double(), lens, PACK_GROUP, gw, bw)),
+                           ("lens on the CPU", (codes, lens.cpu(), PACK_GROUP, gw, bw)),
+                           ("N not a multiple of the group", (codes[:-1], lens[:-1], PACK_GROUP,
+                                                              gw, bw)),
+                           ("block_words 0", (codes, lens, PACK_GROUP, gw, 0))):
+        try:
+            bitpack.pack_codes_grouped_dense_cuda(*bad_args)
+        except ValueError as e:
+            print(f"[pack17] {name} refused: {e}")
+        else:
+            fail(f"the grouped-pack kernel took {name}")
+    check(bitpack.PACK_LAUNCHES == before, "a refused pack counted a launch")
+
+    args = cases[0][1]
+    N, S = lens.shape
+    bound = grouped_pack_bound(N, S, N // PACK_GROUP, gw, lens.element_size())
+    coded = int((lens > 0).sum())
+    print(f"[pack17] 1080p deposit: {coded} coded slots of {N * S}, "
+          f"{int(lens.long().sum())} bits")
+    for _ in range(3):
+        bitpack.pack_codes_grouped_dense_cuda(*args)
+        bitpack.pack_codes_grouped_dense_plain(*args)
+    kernel_ms, plain_ms = [], []
+    for _ in range(2):  # alternate, kernel first then plain
+        kernel_ms.append(cuda_ms(lambda: bitpack.pack_codes_grouped_dense_cuda(*args), 50))
+        plain_ms.append(cuda_ms(lambda: bitpack.pack_codes_grouped_dense_plain(*args), 5))
+    ms, plain = float(np.mean(kernel_ms)), float(np.mean(plain_ms))
+    print(f"[pack17] 1080p deposit (N={N}, S={S}, wpg={gw}, bw={bw}): kernel {kernel_ms} ms "
+          f"per call (CUDA events, 50 launches), plain {plain_ms} ms (5 calls); bound "
+          f"{bound[0]:.4f} ms ({bound[1]}), {bound[0] / ms:.3f} of it ({card})")
+    return err, ms, plain, bound
+
+
 def canon_phase(dev, card: str, intra, adaptive_blob: bytes):
     """Phase 16: the canonical walk kernel against its plain version on the
     card, and the two container decodes that run it (see the module doc).
@@ -1464,6 +1561,7 @@ def canon_phase(dev, card: str, intra, adaptive_blob: bytes):
     from ivclab_tpu_torch import IntraCodec, VideoCodec
     from ivclab_tpu_torch.models import intracodec, videocodec
     from ivclab_tpu_torch.ops import bitpack
+    from ivclab_tpu_torch.runtime import trace
     from ivclab_tpu_torch.utils import fixtures
     from ivclab_tpu_torch.utils.timing import (
         canon_walk_bound,
@@ -1595,9 +1693,14 @@ def canon_phase(dev, card: str, intra, adaptive_blob: bytes):
     # the two decodes end to end: launches, device ms, busy share, host syncs
     x, shape = g._prepare(hd, True)
     dwords, _, doffs, dvalid, _ = g._encode_device(x)
+    # the intra container decode reads its ok flag through trace.fetch
+    # (JAX's intracodec.py:317 reads it too); the wait is placed at fetch's copy
     src, first = inspect.getsourcelines(IntraCodec.decode_from_container)
-    ok_line = first + next(i for i, line in enumerate(src) if "bool(ok)" in line)
-    allowed = {f"ivclab_tpu_torch/models/intracodec.py:{ok_line}"}  # JAX's intracodec.py:317
+    check(any("bool(fetch(ok))" in line for line in src),
+          "IntraCodec.decode_from_container no longer reads ok through trace.fetch")
+    src, first = inspect.getsourcelines(trace.fetch)
+    copy_line = first + next(i for i, line in enumerate(src) if "= t.cpu()" in line)
+    allowed = {f"ivclab_tpu_torch/runtime/trace.py:{copy_line}"}
     decodes = {
         "IntraCodec.decode_from_container 1088x1920 RGB":
             lambda: IntraCodec.decode_from_container(blob, device=dev),
@@ -1630,7 +1733,9 @@ def canon_phase(dev, card: str, intra, adaptive_blob: bytes):
         for where, n in syncs:
             print(f"[canon]   {where} x{n}{' (JAX reads ok here too)' if where in allowed else ''}")
         check(walks == (1 + T if "Video" in label else 1), f"{label}: {walks} walk launches")
-        check(all(where in allowed for where, _ in syncs), f"{label}: a host sync JAX lacks")
+        check(all(where in allowed for where, _ in syncs)
+              and sum(n for _, n in syncs) <= ("from_container" in label and "Intra" in label),
+              f"{label}: a host sync JAX lacks")
         check("decode_device" not in label or not syncs, f"{label}: a host sync")
     return err, ms, plain, bound
 
@@ -2146,7 +2251,11 @@ def main() -> None:
     check(canon_launches > 0, "no main path launched the canonical walk")
     canon_err, canon_ms, canon_plain_ms, canon_bound = canon_phase(dev, card, intra, adaptive_blob)
 
-    print(f"[smoke] phases 1-16 took {time.perf_counter() - t_start:.1f} s ({card})")
+    # -------------------------------- 17. the grouped-pack kernel against plain
+    pack_launches = bitpack.PACK_LAUNCHES
+    pack_err, pack_ms, pack_plain_ms, pack_bound = pack_phase(dev, card, codec, qsyms)
+
+    print(f"[smoke] phases 1-17 took {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": [{
         "name": "motion_search",
         "route": "cuda",
@@ -2219,6 +2328,18 @@ def main() -> None:
         "bound_ms": canon_bound[0],
         "bound_by": canon_bound[1],
         "library_ms": None,
+    }, {
+        "name": "pack_codes_grouped_dense",
+        "route": "cuda",
+        "source": "ivclab_tpu_torch/csrc/grouped_pack.cu",
+        "replaces": "ivclab_tpu/ops/bitpack.py:155",  # XLA operations, not a Pallas kernel
+        "launches": pack_launches,
+        "max_abs_err": pack_err,
+        "ms": pack_ms,  # the 1080p GOP's deposit at its buckets
+        "plain_ms": pack_plain_ms,
+        "bound_ms": pack_bound[0],
+        "bound_by": pack_bound[1],
+        "library_ms": None,  # no single PyTorch call packs variable-length codes
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -11,6 +11,9 @@ the plain PyTorch loops (``decode_blocks_device_plain``,
 ``decode_blocks_hot_plain``), CUDA tensors the hand-written Hopper
 kernels of ``csrc/decode_walk.cu`` (or the call raises), where each
 thread walks one block to its own count, so no host read bounds the walk.
+The grouped packer dispatches the same way: ``pack_codes_grouped_dense_plain``
+on the CPU, the kernel of ``csrc/grouped_pack.cu`` (one warp a group) on a
+card.
 
 Bitstream format: MSB-first within big-endian 32-bit words; bit ``k`` of
 the stream is bit ``31 - (k mod 32)`` of word ``k // 32``. Blocks are
@@ -38,6 +41,7 @@ import numpy as np
 import torch
 
 from ivclab_tpu_torch.entropy.codebook import MAX_CODE_LEN, CanonicalCode
+from ivclab_tpu_torch.runtime.trace import count
 from ivclab_tpu_torch.utils.shape import upload
 
 MASK32 = 0xFFFFFFFF
@@ -48,6 +52,12 @@ WALK_LAUNCHES = 0
 # Launches of the canonical walk kernel (``csrc/decode_walk.cu``) made in
 # this process by ``decode_blocks_device_cuda``.
 CANON_LAUNCHES = 0
+# Calls of the grouped-pack kernel (``csrc/grouped_pack.cu``) made in this
+# process by ``pack_codes_grouped_dense_cuda``.
+PACK_LAUNCHES = 0
+# The most words a group the kernel takes (its ``MAX_WPG``: one warp's
+# shared-memory tile of 192 KB); the codecs' groups take 64-2048.
+PACK_MAX_GROUP_WORDS = 48 * 1024
 # The walk kernels' prefix table has 2^PREFIX_BITS entries (the
 # ``PREFIX_BITS`` of ``csrc/decode_walk.cu``); see :func:`prefix_table`.
 PREFIX_BITS = 10
@@ -273,8 +283,8 @@ def _next_pow2(n: int) -> int:
     return p
 
 
-def pack_codes_grouped_dense(codes: torch.Tensor, lens: torch.Tensor, group_size: int = 16,
-                             words_per_group: int = 1600, block_words: int = 128):
+def pack_codes_grouped_dense_plain(codes: torch.Tensor, lens: torch.Tensor, group_size: int = 16,
+                                   words_per_group: int = 1600, block_words: int = 128):
     """Pack per-block codewords into word-aligned group substreams.
 
     codes/lens: ``[N, S]`` right-aligned codes (< 2^32) and lengths
@@ -338,6 +348,87 @@ def pack_codes_grouped_dense(codes: torch.Tensor, lens: torch.Tensor, group_size
     base = (torch.arange(G, device=dev, dtype=torch.int64) * (words_per_group * 32))[:, None]
     block_offsets = (base + O).reshape(-1)
     return out, group_bits.to(torch.int32), block_offsets.to(torch.int32)
+
+
+@functools.lru_cache(maxsize=None)
+def _pack_lib():
+    from ivclab_tpu_torch.runtime import cuda_build
+
+    lib = cuda_build.load("grouped_pack")
+    vp, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+    lib.ivc_pack_grouped.argtypes = [vp, vp, i, ll, i, i, i, i, vp, vp, vp, vp, vp]
+    lib.ivc_pack_grouped.restype = i
+    lib.ivc_pack_grouped_parts.argtypes = []
+    lib.ivc_pack_grouped_parts.restype = i
+    lib.parts = lib.ivc_pack_grouped_parts()  # scratch ints past one a group
+    return lib
+
+
+def pack_codes_grouped_dense_cuda(codes: torch.Tensor, lens: torch.Tensor, group_size: int = 16,
+                                  words_per_group: int = 1600, block_words: int = 128):
+    """Launch the Hopper grouped-pack kernel (``csrc/grouped_pack.cu``): what
+    :func:`pack_codes_grouped_dense_plain` computes, bit for bit, one warp
+    per group.
+
+    ``codes`` and ``lens`` must be ``[N, S]`` integer CUDA tensors on one
+    device, N a positive multiple of ``group_size``, S, ``group_size``,
+    ``words_per_group`` and ``block_words`` at least 1, ``words_per_group``
+    at most :data:`PACK_MAX_GROUP_WORDS`; lengths in [0, 32].
+    Contiguous int64 codes and int32 or int64 lengths are used in place.
+    Raises on anything else and on a launch error. Runs on the current
+    stream without synchronising; counted in :data:`PACK_LAUNCHES` and the
+    recorder's ``pack_kernel``.
+    """
+    global PACK_LAUNCHES
+    if not codes.is_cuda:
+        raise ValueError(f"needs CUDA codes, got a tensor on {codes.device}")
+    dev = codes.device
+    if lens.device != dev:
+        raise ValueError(f"lens must be on {dev}, got {lens.device}")
+    for name, x in (("codes", codes), ("lens", lens)):
+        if x.dtype.is_floating_point or x.dtype.is_complex or x.dtype == torch.bool:
+            raise ValueError(f"{name} must be an integer tensor, got {x.dtype}")
+    if lens.dim() != 2 or codes.shape != lens.shape:
+        raise ValueError(f"codes and lens must be one [N, S] shape, got {tuple(codes.shape)} "
+                         f"and {tuple(lens.shape)}")
+    N, S = lens.shape
+    gs, wpg, bw = int(group_size), int(words_per_group), int(block_words)
+    if N < 1 or S < 1 or gs < 1 or N % gs:
+        raise ValueError(f"N={N} must be a positive multiple of group_size={gs}, S={S} >= 1")
+    if not (1 <= wpg <= PACK_MAX_GROUP_WORDS and 1 <= bw < 2**31 and S < 2**26):
+        raise ValueError(f"words_per_group={wpg} must lie in [1, {PACK_MAX_GROUP_WORDS}], "
+                         f"block_words={bw} in [1, 2^31), S={S} below 2^26")
+    codes = codes.to(torch.int64).contiguous()
+    if lens.dtype not in (torch.int32, torch.int64):
+        lens = lens.to(torch.int32)
+    lens = lens.contiguous()
+    G = N // gs
+    words = torch.empty((G, wpg), dtype=torch.int64, device=dev)
+    group_bits = torch.empty(G, dtype=torch.int32, device=dev)
+    block_offsets = torch.empty(N, dtype=torch.int32, device=dev)
+    lib = _pack_lib()
+    scratch = torch.empty(G + lib.parts, dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.ivc_pack_grouped(codes.data_ptr(), lens.data_ptr(), lens.element_size(), N, S, gs,
+                              wpg, bw, words.data_ptr(), group_bits.data_ptr(),
+                              block_offsets.data_ptr(), scratch.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"grouped pack kernel refused or failed (cudaError {rc}): N={N}, "
+                           f"S={S}, group_size={gs}, words_per_group={wpg}, block_words={bw}")
+    PACK_LAUNCHES += 1
+    count("pack_kernel")
+    return words, group_bits, block_offsets
+
+
+def pack_codes_grouped_dense(codes: torch.Tensor, lens: torch.Tensor, group_size: int = 16,
+                             words_per_group: int = 1600, block_words: int = 128):
+    """The grouped packer (see :func:`pack_codes_grouped_dense_plain` for
+    what it returns): CUDA tensors launch the kernel through
+    :func:`pack_codes_grouped_dense_cuda`, CPU tensors run the plain
+    version."""
+    pack = (pack_codes_grouped_dense_cuda if codes.is_cuda or lens.is_cuda
+            else pack_codes_grouped_dense_plain)
+    return pack(codes, lens, group_size, words_per_group, block_words)
 
 
 def locals_from_groups(group_words: torch.Tensor, block_bit_offsets: torch.Tensor,

@@ -79,6 +79,18 @@ def canon_walk_bound(block_offsets, block_bits, n_words: int, max_syms: int
     return nbytes / H100_HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def grouped_pack_bound(N: int, S: int, G: int, wpg: int, len_bytes: int = 4
+                       ) -> tuple[float, str]:
+    """(least ms, "bytes") for one grouped pack (``ops/bitpack.py::
+    pack_codes_grouped_dense``) of ``[N, S]`` slots into ``G`` groups of
+    ``wpg`` words on the H100: the int64 codes and the lengths
+    (``len_bytes`` each) read once; the int64 words, the int32 block
+    offsets and the int32 group bits written once. The deposit's integer
+    work, a few dozen instructions a coded slot, is far below that."""
+    nbytes = N * S * (8 + len_bytes) + G * wpg * 8 + N * 4 + G * 4
+    return nbytes / H100_HBM_BYTES_PER_S * 1e3, "bytes"
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean ms per call of ``fn`` between two CUDA events around ``iters``
     calls (host enqueue included where it is the slower side)."""
