@@ -1559,8 +1559,8 @@ def canon_phase(dev, card: str, intra, adaptive_blob: bytes):
     import torch
 
     from ivclab_tpu_torch import IntraCodec, VideoCodec
-    from ivclab_tpu_torch.models import intracodec, videocodec
-    from ivclab_tpu_torch.ops import bitpack
+    from ivclab_tpu_torch.models import videocodec
+    from ivclab_tpu_torch.ops import bitpack, transform
     from ivclab_tpu_torch.runtime import trace
     from ivclab_tpu_torch.utils import fixtures
     from ivclab_tpu_torch.utils.timing import (
@@ -1583,12 +1583,12 @@ def canon_phase(dev, card: str, intra, adaptive_blob: bytes):
         calls.append(args[:5])
         return real(*args, **kw)
 
-    intracodec.decode_blocks_device = videocodec.decode_blocks_device = spy
+    transform.decode_blocks_device = videocodec.decode_blocks_device = spy
     try:
         IntraCodec.decode_from_container(blob, device=dev)
         _, oks = VideoCodec.decode_from_container(adaptive_blob, return_device=True, device=dev)
     finally:
-        intracodec.decode_blocks_device = videocodec.decode_blocks_device = real
+        transform.decode_blocks_device = videocodec.decode_blocks_device = real
     check(bool(oks.all()) and len(calls) == 2 + T, "the decodes did not walk 1 + 1 + T times")
     cases = [("phase 7b's 1088x1920 RGB intra stream", calls[0]),
              ("phase 9a's MV section", calls[1])]

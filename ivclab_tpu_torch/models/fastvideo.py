@@ -30,12 +30,14 @@ import torch
 from ivclab_tpu_torch.entropy.codebook import HotCode, build_hot_code, hot_code_from_parts
 from ivclab_tpu_torch.models.intracodec import _sym_min_max, bucket_bounds
 from ivclab_tpu_torch.ops.bitpack import decode_blocks_hot, locals_from_groups
-from ivclab_tpu_torch.ops.dct import dct2_fused, idct2_fused, require_full_fp32
+from ivclab_tpu_torch.ops.dct import dct2_fused, require_full_fp32
 from ivclab_tpu_torch.ops.motion import motion_compensate, motion_search
 from ivclab_tpu_torch.ops.quant import quant_table_zigzag
 from ivclab_tpu_torch.ops.transform import (
     PACK_GROUP,
+    blocks_from_plane,
     forward_symbolize,
+    inverse_reconstruct,
     map_codes_hot,
     pack_extents,
     pack_grouped_sized,
@@ -47,7 +49,8 @@ from ivclab_tpu_torch.ops.zerorun import (
     zerorun_encode_blocks,
 )
 from ivclab_tpu_torch.runtime.container import GroupedSection, HotCodebook, VideoPayload
-from ivclab_tpu_torch.runtime.trace import fetch, span, upload_pageable
+from ivclab_tpu_torch.runtime.trace import fetch, span
+from ivclab_tpu_torch.utils.shape import upload
 
 EOB = 4000
 
@@ -78,30 +81,15 @@ class PackedGop(NamedTuple):
     ok: torch.Tensor          # device bool: sticky buckets were adequate
 
 
-def _plane_to_blocks(y):
-    H, W = y.shape
-    return y.reshape(H // 8, 8, W // 8, 8).permute(0, 2, 1, 3).reshape(-1, 64)
-
-
-def _blocks_to_plane(blocks, H, W):
-    return blocks.reshape(H // 8, W // 8, 8, 8).permute(0, 2, 1, 3).reshape(H, W)
-
-
-def _i64(a, device) -> torch.Tensor:
-    return upload_pageable(torch.from_numpy(np.asarray(a).astype(np.int64)), device)
-
-
 # --------------------------------------------------------------------- phases
 
 
 def _symbolize(plane, qt, inv_qt):
     """[H, W] plane -> (scan-ordered quantized symbols [N, 64] int32, the
     decoder's reconstruction of the plane)."""
-    H, W = plane.shape
-    coeffs = dct2_fused(_plane_to_blocks(plane))
+    coeffs = dct2_fused(blocks_from_plane(plane[:, :, None]))
     qsym = torch.round(coeffs * inv_qt[None, :]).to(torch.int32)
-    deq = (qsym.to(torch.float32) * qt[None, :]).to(torch.int32)
-    return qsym, _blocks_to_plane(idct2_fused(deq.to(torch.float32)), H, W)
+    return qsym, inverse_reconstruct(qsym, qt[None], (*plane.shape, 1))[:, :, 0]
 
 
 def _encode_gop(frames_y, qt, inv_qt, mv_lens, sr: int):
@@ -163,9 +151,8 @@ def _decode_gop_hot(words, block_offsets, block_counts, mvs, lj, first_code, gro
     in_count = torch.arange(cap, device=dev)[None, :] < cnts[:, None]
     syms = torch.where(in_count, sym_idx + lower_bound, 0)
     blocks, ok = zerorun_decode_blocks(syms, cnts, 64, EOB)
-    deq = (blocks.to(torch.float32) * qt[None, :]).to(torch.int32)
-    pix = idct2_fused(deq.to(torch.float32))
-    planes = pix.reshape(T, H // 8, W // 8, 8, 8).permute(0, 1, 3, 2, 4).reshape(T, H, W)
+    # the frames' blocks in order are the blocks of their planes stacked on the rows
+    planes = inverse_reconstruct(blocks, qt[None], (T * H, W, 1)).reshape(T, H, W)
 
     recons = []
     recon = torch.zeros((H, W), dtype=torch.float32, device=dev)
@@ -202,9 +189,9 @@ class _DecodeTables(NamedTuple):
 
 def _decode_tables(code: HotCode, device) -> _DecodeTables:
     c = code.code
-    return _DecodeTables(_i64(c.lj_next_minus1, device), _i64(c.first_code, device),
-                         _i64(c.group_offset, device), _i64(code.alpha_of_rank, device),
-                         int(c.min_len), int(code.esc_rank))
+    lj, fc, go, ar = (upload(np.asarray(a).astype(np.int64), device) for a in (
+        c.lj_next_minus1, c.first_code, c.group_offset, code.alpha_of_rank))
+    return _DecodeTables(lj, fc, go, ar, int(c.min_len), int(code.esc_rank))
 
 
 def _encode_tables(code: HotCode, device):
@@ -212,8 +199,8 @@ def _encode_tables(code: HotCode, device):
     hv = np.asarray(code.hot_values, dtype=np.int64)
     if hv.size and (hv.min() < 0 or hv.max() >= 1 << code.raw_bits):
         raise ValueError("hot values must lie in [0, 2^raw_bits)")
-    fused = code.fused_table()
-    return (_i64(hv, device), _i64(fused[: code.K], device),
+    fused = code.fused_table()[: code.K].astype(np.int64)
+    return (upload(hv, device), upload(fused, device),
             int(code.code.codes[code.K]), int(code.code.lengths[code.K]))
 
 
@@ -234,9 +221,8 @@ class FusedVideoCodec:
         self.sr = int(search_range)
         self.device = torch.device(device)
         qt = quant_table_zigzag(self.q, 1)[0]
-        self.qt = upload_pageable(torch.from_numpy(qt), self.device)
-        self.inv_qt = upload_pageable(torch.from_numpy((1.0 / qt).astype(np.float32)),
-                                      self.device)
+        self.qt = upload(qt, self.device)
+        self.inv_qt = upload((1.0 / qt).astype(np.float32), self.device)
         self.residual_code: HotCode | None = None
         self.mv_code: HotCode | None = None
         self._buckets: tuple[int, int, int] | None = None
@@ -263,7 +249,7 @@ class FusedVideoCodec:
         if isinstance(frames_y, torch.Tensor):
             t = frames_y.to(device=self.device, dtype=torch.float32)
         else:
-            t = torch.from_numpy(np.asarray(frames_y, dtype=np.float32)).to(self.device)
+            t = upload(np.asarray(frames_y, dtype=np.float32), self.device)
         return t.contiguous()
 
     def _require_fp32(self):
@@ -325,7 +311,7 @@ class FusedVideoCodec:
             lens = np.zeros(mvc.alphabet_n, dtype=np.int32)
             lens[mvc.hot_values] = mvc.code.lengths[: mvc.K]
             lens[lens == 0] = int(mvc.code.lengths[mvc.K]) + mvc.raw_bits
-            self._mv_lens = (mvc, torch.from_numpy(lens).to(self.device))
+            self._mv_lens = (mvc, upload(lens, self.device))
         return self._mv_lens[1]
 
     def pack_gop(self, qsyms, check: bool = True) -> PackedGop:

@@ -47,19 +47,14 @@ from ivclab_tpu_torch.ops.quant import quant_table_zigzag
 from ivclab_tpu_torch.ops.transform import (
     GROUP_WORDS,
     PACK_GROUP,
-    cap_slice,
+    decode_grouped_planes,
     forward_symbolize,
     inverse_reconstruct,
     pack_symbols,
     pack_symbols_grouped,
     symbol_histogram,
 )
-from ivclab_tpu_torch.ops.zerorun import (
-    BLOCK_CAP,
-    compact_symbols,
-    zerorun_decode_blocks,
-    zerorun_decode_stream,
-)
+from ivclab_tpu_torch.ops.zerorun import BLOCK_CAP, compact_symbols, zerorun_decode_stream
 from ivclab_tpu_torch.runtime import container as ct
 from ivclab_tpu_torch.runtime.trace import fetch, span
 from ivclab_tpu_torch.utils.shape import upload
@@ -158,7 +153,7 @@ class IntraCodec:
         if self.device.type == "cuda":
             require_full_fp32()
         if not isinstance(img, torch.Tensor):  # upload as given (uint8 is 4x smaller)
-            img = torch.from_numpy(np.ascontiguousarray(img))
+            img = upload(img, self.device)
         x = img.to(self.device).to(torch.float32)
         orig_shape = tuple(int(s) for s in x.shape)
         if is_source_rgb:
@@ -195,7 +190,7 @@ class IntraCodec:
         """Symbol stream -> reconstructed image (inverse of image2symbols)."""
         hp, wp, C = self._padded_grid(original_shape)
         qt, _ = self._tables(C)
-        s = torch.from_numpy(np.asarray(symbols, dtype=np.int32).copy()).to(self.device)
+        s = upload(np.asarray(symbols, dtype=np.int32), self.device)
         blocks, ok = zerorun_decode_stream(s, s.shape[0], hp * wp * C, 64, self.end_of_block)
         if not bool(ok):
             raise ValueError("zero-run decode failed: corrupt stream or wrong shape")
@@ -219,8 +214,8 @@ class IntraCodec:
             huffman = HuffmanCoder(lower_bound=code.lower_bound)
             huffman.code = code
         self.huffman = huffman
-        self._enc_codes = torch.from_numpy(code.codes.astype(np.int64)).to(self.device)
-        self._enc_lens = torch.from_numpy(code.lengths.astype(np.int64)).to(self.device)
+        self._enc_codes = upload(code.codes.astype(np.int64), self.device)
+        self._enc_lens = upload(code.lengths.astype(np.int64), self.device)
         self._dec_tables = decode_tables(code, self.device)
 
     def _train_from_buffers(self, buf, valid_len, bounds=None):
@@ -407,18 +402,13 @@ class IntraCodec:
                 qt, _ = codec._tables(C)
                 tables = decode_tables(code, codec.device)
             with span("ivc.decode.upload"):
-                words, offs, counts = ct.device_views(payload, codec.device)
+                views = ct.device_views(payload, codec.device)
             with span("ivc.decode.enqueue"):
-                # the walk's depth is bucketed from the sidecar's largest block
-                cap = cap_slice(int(payload.block_counts.max(initial=1)), BLOCK_CAP)
-                sym_idx = decode_blocks_device(words, offs, counts, tables, cap)
-                n_real = hp * wp * C
-                in_count = torch.arange(cap, device=codec.device)[None, :] < counts[:, None]
-                syms = torch.where(in_count, sym_idx + code.lower_bound, 0)[:n_real]
-                blocks, ok = zerorun_decode_blocks(syms, counts[:n_real], 64, payload.eob)
+                recon, ok = decode_grouped_planes(views, tables, code.lower_bound,
+                                                  int(payload.block_counts.max(initial=0)),
+                                                  (hp, wp, C), payload.eob, qt)
                 if not return_device and not bool(fetch(ok)):
                     raise ValueError("container decode failed: corrupt stream")
-                recon = inverse_reconstruct(blocks, qt, (hp * 8, wp * 8, C))
                 recon = codec._finalize(recon, payload.shape)
             return (recon, ok) if return_device else recon
 

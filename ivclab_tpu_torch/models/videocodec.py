@@ -66,7 +66,7 @@ from ivclab_tpu_torch.ops.transform import (
     pack_symbols_grouped,
     symbol_histogram,
 )
-from ivclab_tpu_torch.ops.zerorun import BLOCK_CAP, zerorun_decode_blocks
+from ivclab_tpu_torch.ops.zerorun import BLOCK_CAP
 from ivclab_tpu_torch.runtime import native
 from ivclab_tpu_torch.runtime.container import (
     KIND_PFRAME,
@@ -79,7 +79,7 @@ from ivclab_tpu_torch.runtime.container import (
     _numpy,
     packer_wmax,
 )
-from ivclab_tpu_torch.runtime.trace import fetch, span, upload_pageable
+from ivclab_tpu_torch.runtime.trace import fetch, span
 from ivclab_tpu_torch.utils.shape import upload
 
 CODEBOOK_POLICIES = ("per-frame", "adaptive", "first-p-frame")
@@ -171,7 +171,7 @@ def _code_tables(codes, device) -> list[tuple[torch.Tensor, torch.Tensor]]:
     """Each canonical code's (codes, lengths) as int64 tensors on ``device``,
     in one upload."""
     flat = np.concatenate([np.concatenate([c.codes, c.lengths]).astype(np.int64) for c in codes])
-    dev = upload_pageable(torch.from_numpy(flat), device)
+    dev = upload(flat, device)
     out, off = [], 0
     for c in codes:
         out.append((dev[off:off + c.n], dev[off + c.n:off + 2 * c.n]))
@@ -437,8 +437,8 @@ class VideoCodec:
                 np.asarray(state["motion_lengths"], dtype=np.int32), 0)
             codec._motion_trained = True
         if state["decoder_recon"] is not None:
-            codec.decoder_recon = torch.from_numpy(
-                np.ascontiguousarray(state["decoder_recon"], dtype=np.float32)).to(codec.device)
+            codec.decoder_recon = upload(np.asarray(state["decoder_recon"], dtype=np.float32),
+                                         codec.device)
         return codec
 
     # ------------------------------------------------------------ plumbing
@@ -450,7 +450,7 @@ class VideoCodec:
     def _upload(self, x) -> torch.Tensor:
         """Numpy or tensor -> the device as float32 (uint8 uploads as uint8)."""
         if not isinstance(x, torch.Tensor):
-            x = torch.from_numpy(np.ascontiguousarray(x))
+            x = upload(x, self.device)
         return x.to(self.device).to(torch.float32).contiguous()
 
     def _require_mv_code(self):
@@ -515,7 +515,7 @@ class VideoCodec:
             ref_y = self.decoder_recon
             mv = motion_search(ref_y, y, self.search_range)
             _, motion_bits, mv_decoded = self._code_motion(mv.cpu().numpy())
-            pred = motion_compensate(ref_y, torch.from_numpy(mv_decoded), self.search_range)
+            pred = motion_compensate(ref_y, upload(mv_decoded, self.device), self.search_range)
             residual = y - pred
             recon_residual, residual_bits = self._code_residual_plane(residual)
             recon_y = pred + recon_residual
@@ -611,15 +611,18 @@ class VideoCodec:
         mv_tables = decode_tables(p.mv_codebook.canonical(), dev)
         code = p.residual_codebook.canonical()
         views, tables = p.residual.device_views(dev), decode_tables(code, dev)
-        ref = torch.as_tensor(recon_prev).to(device=dev, dtype=torch.float32)
+        ref = (recon_prev.to(device=dev, dtype=torch.float32)
+               if isinstance(recon_prev, torch.Tensor)
+               else upload(np.asarray(recon_prev, dtype=np.float32), dev))
         qt = upload(quant_table_zigzag(p.quantization_scale, 1), dev)
 
         mv = _decode_flat(p.mv, mv_views, mv_tables)[:n_real].reshape(hb, wb)
-        rrec, ok = _decode_residual(code.lower_bound, views, tables,
-                                    int(p.residual.block_counts.max(initial=0)), (hb, wb), eob, qt)
+        rrec, ok = tf.decode_grouped_planes(views, tables, code.lower_bound,
+                                            int(p.residual.block_counts.max(initial=0)),
+                                            (hb, wb, 1), eob, qt)
         if not bool(ok):
             raise ValueError("corrupt P-frame residual stream")
-        return motion_compensate(ref, mv, sr) + rrec
+        return motion_compensate(ref, mv, sr) + rrec[:, :, 0]
 
     # ------------------------------------------------------------ container
 
@@ -719,11 +722,11 @@ class VideoCodec:
                     mvs = _decode_flat(p.mv, mv_views, mv_tables)[:M].reshape(T - 1, hb, wb)
                 recons, oks, recon = [], [], None
                 for t, ((_, section), code) in enumerate(zip(p.frames, codes)):
-                    rrec, ok = _decode_residual(code.lower_bound, views[t], tables[t],
-                                                int(section.block_counts.max(initial=0)),
-                                                (hp, wp), eob, qt)
+                    rrec, ok = tf.decode_grouped_planes(views[t], tables[t], code.lower_bound,
+                                                        int(section.block_counts.max(initial=0)),
+                                                        (hp, wp, 1), eob, qt)
                     oks.append(ok)
-                    rrec = rrec[:H, :W]
+                    rrec = rrec[:H, :W, 0]
                     recon = rrec if t == 0 else motion_compensate(recon, mvs[t - 1], sr) + rrec
                     recons.append(recon)
                 recons, oks = torch.stack(recons), torch.stack(oks)
@@ -761,7 +764,7 @@ class VideoCodec:
             if cached is not None:
                 # GOPs open with an I-frame: no state crosses a GOP boundary
                 _, gop_recons, gop_bits = cached
-                recons.append(torch.from_numpy(gop_recons).to(self.device))
+                recons.append(upload(gop_recons, self.device))
                 bits[lo:hi] = gop_bits
                 continue
             gop_recons, gop_bits = [], []
@@ -828,17 +831,3 @@ def _decode_flat(section: GroupedSection, views, tables) -> torch.Tensor:
     in_count = torch.arange(64, device=sym.device)[None, :] < counts[:, None]
     return torch.where(in_count, sym, 0).reshape(-1)
 
-
-def _decode_residual(lower: int, views, tables, vmax: int, grid, eob: int, qt):
-    """One frame's residual section (its device views and decode tables)
-    -> (``[hp * 8, wp * 8]`` residual plane, ok flag) on the views' device,
-    for a ``grid`` of ``(hp, wp)`` blocks. The walk's depth is the bucket
-    of ``vmax``, the sidecar's largest block count."""
-    words, offs, counts = views
-    n_real = grid[0] * grid[1]
-    cap = cap_slice(max(vmax, 1), BLOCK_CAP)
-    sym_idx = decode_blocks_device(words, offs, counts, tables, cap, max_count=vmax)
-    in_count = torch.arange(cap, device=words.device)[None, :] < counts[:, None]
-    syms = torch.where(in_count, sym_idx + lower, 0)[:n_real]
-    blocks, ok = zerorun_decode_blocks(syms, counts[:n_real], 64, eob)
-    return inverse_reconstruct(blocks, qt, (grid[0] * 8, grid[1] * 8, 1))[:, :, 0], ok

@@ -463,7 +463,11 @@ def locals_from_groups(group_words: torch.Tensor, block_bit_offsets: torch.Tenso
 
 
 def _as_i64(x, device) -> torch.Tensor:
-    return torch.as_tensor(x).to(device=device, dtype=torch.int64)
+    """A tensor as int64 on ``device``; a host array (or list) through
+    :func:`upload`."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device=device, dtype=torch.int64)
+    return upload(np.asarray(x).astype(np.int64), device)
 
 
 def _hot_tables(lj, first_code, group_offset, alpha_of_rank, max_len, device):

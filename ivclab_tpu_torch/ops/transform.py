@@ -7,7 +7,9 @@ intra and adaptive video codecs (``pack_symbols``, one flat stream;
 ``pack_symbols_grouped``, 16-block word-aligned groups;
 ``pack_symbols_grouped_sized``, the same with sized buffers), the
 hot/escape code mapping ``map_codes_hot`` of the GOP codec, and the
-packers' sizing helpers.
+packers' sizing helpers. Also ``decode_grouped_planes``, the one decode of
+a coded grouped section (pixels back from the intra, adaptive and P-frame
+containers).
 """
 
 from __future__ import annotations
@@ -17,12 +19,14 @@ import torch
 from ivclab_tpu_torch.entropy.stats import histogram_int32
 from ivclab_tpu_torch.ops.bitpack import (
     MASK32,
+    _as_i64,
+    decode_blocks_device,
     pack_codes,
     pack_codes_grouped_dense,
     symbol_bit_layout,
 )
 from ivclab_tpu_torch.ops.dct import dct2_fused, idct2_fused
-from ivclab_tpu_torch.ops.zerorun import BLOCK_CAP, zerorun_encode_blocks
+from ivclab_tpu_torch.ops.zerorun import BLOCK_CAP, zerorun_decode_blocks, zerorun_encode_blocks
 from ivclab_tpu_torch.runtime.trace import span
 
 # Group geometry of the grouped packer: 16 blocks per word-aligned
@@ -85,6 +89,24 @@ def inverse_reconstruct(qsym: torch.Tensor, qtable_zz: torch.Tensor, shape) -> t
     deq = (qsym.reshape(H // 8, W // 8, C, 64).to(torch.float32) * table[None, None]).to(torch.int32)
     pix = idct2_fused(deq.reshape(-1, 64).to(torch.float32))
     return plane_from_blocks(pix, shape)
+
+
+def decode_grouped_planes(views, tables, lower_bound: int, vmax: int, grid, eob: int, qt):
+    """A coded grouped section (its device views and decode tables) ->
+    (``[hp * 8, wp * 8, C]`` float32 planes, ok flag) on the views' device,
+    for a ``grid`` of ``(hp, wp, C)`` blocks: the canonical walk, the
+    symbols from ``lower_bound``, zero-run decode and
+    :func:`inverse_reconstruct` under ``qt``. The walk's depth is the
+    capacity bucket of ``vmax``, the sidecar's largest block count."""
+    words, offs, counts = views
+    hp, wp, C = grid
+    n_real = hp * wp * C
+    cap = cap_slice(max(vmax, 1), BLOCK_CAP)
+    sym_idx = decode_blocks_device(words, offs, counts, tables, cap, max_count=vmax)
+    in_count = torch.arange(cap, device=words.device)[None, :] < counts[:, None]
+    syms = torch.where(in_count, sym_idx + lower_bound, 0)[:n_real]
+    blocks, ok = zerorun_decode_blocks(syms, counts[:n_real], 64, eob)
+    return inverse_reconstruct(blocks, qt, (hp * 8, wp * 8, C)), ok
 
 
 def symbol_histogram(buf: torch.Tensor, valid_len: torch.Tensor, lo: int, hi: int):
@@ -197,8 +219,8 @@ def map_codes_hot(buf: torch.Tensor, valid_len: torch.Tensor, hot_values, hot_fu
     sym = buf.to(torch.int64)
     S = sym.shape[1]
     mask = torch.arange(S, device=dev)[None, :] < valid_len.to(dev)[:, None]
-    hv = torch.as_tensor(hot_values).to(device=dev, dtype=torch.int64)
-    hf = torch.as_tensor(hot_fused).to(device=dev, dtype=torch.int64) & MASK32
+    hv = _as_i64(hot_values, dev)
+    hf = _as_i64(hot_fused, dev) & MASK32
 
     n = 1 << raw_bits
     lut_fused = torch.zeros(n, dtype=torch.int64, device=dev).index_add_(0, hv, hf) & MASK32

@@ -62,6 +62,7 @@ from ivclab_tpu_torch.parallel.halo import (
 )
 from ivclab_tpu_torch.parallel.mesh import Mesh
 from ivclab_tpu_torch.runtime.container import GroupedSection, packer_wmax
+from ivclab_tpu_torch.utils.shape import upload
 
 
 def shard_frames(frames_y, mesh: Mesh) -> dict:
@@ -74,7 +75,7 @@ def shard_frames(frames_y, mesh: Mesh) -> dict:
     if isinstance(frames_y, torch.Tensor):
         x = frames_y.to(device=mesh.device, dtype=torch.float32)
     else:
-        x = torch.from_numpy(np.asarray(frames_y, dtype=np.float32)).to(mesh.device)
+        x = upload(np.asarray(frames_y, dtype=np.float32), mesh.device)
     T, H, W = x.shape
     if T % mesh.n_gop or H % mesh.n_tile:
         raise ValueError(f"[{T}, {H}, {W}] frames do not split over a "
@@ -214,17 +215,17 @@ def build_sharded_video_encoder(mesh: Mesh, gop_len: int, band_h: int, width: in
     H = band_h * mesh.n_tile
     sr = search_range
     qt_np = quant_table_zigzag(quantization_scale, 1)[0]
-    qt = torch.from_numpy(qt_np).to(dev)
-    inv_qt = torch.from_numpy((1.0 / qt_np).astype(np.float32)).to(dev)
+    qt = upload(qt_np, dev)
+    inv_qt = upload((1.0 / qt_np).astype(np.float32), dev)
     if residual_code is not None:
-        enc_lens = torch.as_tensor(np.asarray(residual_code.lengths, np.int32), device=dev)
+        enc_lens = upload(np.asarray(residual_code.lengths, np.int32), dev)
         lower = int(residual_code.lower_bound)
     else:
         enc_lens = torch.full((5120,), 6, dtype=torch.int32, device=dev)
         lower = -1024
     n_mv = (2 * sr + 1) ** 2
     if mv_code is not None:
-        mv_lens = torch.as_tensor(np.asarray(mv_code.lengths, np.int32), device=dev)
+        mv_lens = upload(np.asarray(mv_code.lengths, np.int32), dev)
     else:
         mv_lens = torch.full((n_mv,), 7, dtype=torch.int32, device=dev)
 
@@ -402,8 +403,8 @@ class ShardedAdaptiveEncoder:
         self.eob = int(eob)
         self.policy = codebook_policy
         qt = quant_table_zigzag(self.q, 1)[0]
-        self.qt = torch.from_numpy(qt).to(mesh.device)
-        self.inv_qt = torch.from_numpy((1.0 / qt).astype(np.float32)).to(mesh.device)
+        self.qt = upload(qt, mesh.device)
+        self.inv_qt = upload((1.0 / qt).astype(np.float32), mesh.device)
         self.mv_code = _uniform_mv_code(self.sr).code
         self.full_stride_frames = 0
 
@@ -462,7 +463,7 @@ class ShardedAdaptiveEncoder:
             """Gathered (group bits [L, G], frame-global offsets [L, N]) per GOP."""
             local = {}
             for (g, i), per_frame in packs.items():
-                s = torch.tensor(strides[g], device=mesh.device)[:, None] * 32
+                s = upload(np.asarray(strides[g], dtype=np.int64), mesh.device)[:, None] * 32
                 offs = torch.stack([f[2].to(torch.int64) for f in per_frame]) + i * Gb * s
                 local[(g, i)] = torch.cat([torch.stack([f[1].to(torch.int64) for f in per_frame]),
                                            offs], dim=1)

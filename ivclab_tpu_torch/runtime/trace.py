@@ -246,18 +246,6 @@ def fetch(t: torch.Tensor) -> torch.Tensor:
     return out
 
 
-def upload_pageable(t: torch.Tensor, device) -> torch.Tensor:
-    """``t.to(device)`` from pageable host memory inside an ``ivc.fetch``
-    span: to a CUDA device the copy waits for the card as a read does,
-    counted in ``syncs`` and ``h2d_bytes``."""
-    with span("ivc.fetch"):
-        out = t.to(device)
-        if out.is_cuda:
-            count("syncs")
-            count("h2d_bytes", t.nbytes)
-    return out
-
-
 def enable() -> bool:
     """Turn the recorder on and start a new session; returns whether it was
     on already."""

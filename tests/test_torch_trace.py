@@ -241,7 +241,7 @@ def _cells(frames):
     limits = [("ivc.codebook.limit", [])] * T
     encode = ("ivc.adaptive.encode", [
         ("ivc.adaptive.scan", []), ("ivc.fetch", []), ("ivc.adaptive.codebooks", limits),
-        ("ivc.adaptive.pack", [("ivc.fetch", [])] * 3), ("ivc.adaptive.serialize", [])])
+        ("ivc.adaptive.pack", [("ivc.fetch", [])] * 2), ("ivc.adaptive.serialize", [])])
 
     def stream():
         out = adaptive.encode_to_container(frames)
@@ -291,6 +291,7 @@ def test_the_fused_container_decode_has_the_decodes_four_phases(gop):
     assert [k for k, _ in kids] == ["ivc.decode.parse", "ivc.decode.tables",
                                     "ivc.decode.upload", "ivc.decode.enqueue"]
     assert [k for k, _ in kids[3][1]] == ["ivc.fused.decode_gop"]
+    assert all(s["name"] != "ivc.fetch" for s in req["spans"])  # nothing waits on the card
 
 
 @pytest.mark.cuda
@@ -304,6 +305,7 @@ def test_the_syncs_counter_equals_host_syncs_on_the_card(cuda_device):
     fused = FusedVideoCodec(device=cuda_device)
     fused.train(frames[:2])
     fused.pack_gop(fused.encode_gop(frames)[0])
+    fused_blob = fused.encode_to_container(frames)
 
     def roundtrip():
         qsyms, mvs, _, _ = fused.encode_gop(frames)
@@ -312,11 +314,14 @@ def test_the_syncs_counter_equals_host_syncs_on_the_card(cuda_device):
                                 p.cap)
 
     VideoCodec.decode_from_container(blob, return_device=True, device=cuda_device)
+    FusedVideoCodec.decode_from_container(fused_blob, device=cuda_device)
     roundtrip()
     calls = {
         "encode_to_container": lambda: adaptive.encode_to_container(frames),
         "decode_from_container": lambda: VideoCodec.decode_from_container(
             blob, return_device=True, device=cuda_device),
+        "fused decode_from_container": lambda: FusedVideoCodec.decode_from_container(
+            fused_blob, device=cuda_device),
         "fused round trip": roundtrip,
     }
     for name, fn in calls.items():

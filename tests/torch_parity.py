@@ -187,20 +187,20 @@ def captured_canon_walks(monkeypatch, device="cpu") -> dict:
     "video mv", then each frame's residual section "video residual t").
     Each is a dict: words, offsets, counts, tables, max_syms, max_count."""
     from ivclab_tpu_torch import IntraCodec, VideoCodec
-    from ivclab_tpu_torch.models import intracodec as tic
     from ivclab_tpu_torch.models import videocodec as tvc
+    from ivclab_tpu_torch.ops import transform as ttf
     from ivclab_tpu_torch.utils import fixtures
 
     calls = []
-    real = tic.decode_blocks_device
+    real = ttf.decode_blocks_device
 
     def spy(words, offsets, counts, tables, max_syms, max_count=None):
         calls.append({"words": words, "offsets": offsets, "counts": counts, "tables": tables,
                       "max_syms": max_syms, "max_count": max_count})
         return real(words, offsets, counts, tables, max_syms, max_count)
 
-    monkeypatch.setattr(tic, "decode_blocks_device", spy)
-    monkeypatch.setattr(tvc, "decode_blocks_device", spy)
+    monkeypatch.setattr(ttf, "decode_blocks_device", spy)  # the coded sections
+    monkeypatch.setattr(tvc, "decode_blocks_device", spy)  # the MV section
     img = np.ascontiguousarray(fixtures.image("lena")[:128, :256])
     intra = IntraCodec(1.0, device=device)
     intra.train_huffman_from_image(img)
