@@ -185,7 +185,17 @@ It imports neither JAX nor ``ivclab_tpu``. Phases, each fatal on failure:
    limit's second launch) with int32 and int64 lengths; bad arguments
    refused; its launches over phases 2-16; the kernel's time on the 1080p
    deposit (CUDA events around 50 warm launches) beside
-   ``utils/timing.py::grouped_pack_bound`` and the plain version's.
+   ``utils/timing.py::grouped_pack_bound`` and the plain version's;
+18. the map kernel (``csrc/grouped_pack.cu::map_kernel``,
+   ``ops/transform.py::map_gop_hot``) against its plain chain on the card,
+   every output bit for bit (codes, lengths, counts, the two extents and
+   the capacity flag): phase 4's 1080p GOP (captured at ``_map_gop_hot``'s
+   call) at its cap and at caps 32 and 128, and seeded adversarial blocks
+   (all-zero, all non-zero, 97-symbol, values past ``2^raw_bits`` and below
+   the lower bound) under hot tables with duplicate values at raw_bits 1,
+   13 and 24; bad arguments refused; its launches over phases 2-17; its
+   time on the 1080p GOP (CUDA events around 50 warm launches) beside
+   ``utils/timing.py::hot_map_bound`` and the plain chain's.
 
 The line before the last is a JSON list of the kernels with their launch
 counts over every main path above, times and bounds (the wide kernel's
@@ -1547,6 +1557,113 @@ def pack_phase(dev, card: str, codec, qsyms):
     return err, ms, plain, bound
 
 
+def adversarial_map_case(seed: int, N: int, raw_bits: int, K: int, lower_bound: int):
+    """Seeded blocks ``[N, 64]`` and hot tables for phase 18: random
+    densities with all-zero, all non-zero (65 symbols), alternating
+    (97 symbols) and large-valued blocks; hot values in ``[0, 2^raw_bits)``
+    with duplicates and both edges, random 32-bit fused entries."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    q = rng.integers(-40, 41, (N, 64)) * (rng.random((N, 64)) < rng.random((N, 1)))
+    rows = rng.permutation(N)
+    q[rows[0::8]] = 0
+    q[rows[1::8]] = rng.integers(1, 9, (rows[1::8].size, 64))
+    q[rows[2::8]] = 0
+    q[rows[2::8], 1::2] = rng.integers(1, 50, (rows[2::8].size, 32))
+    q[rows[4::8]] = rng.integers(-2**25, 2**25, (rows[4::8].size, 64))
+    hv = rng.integers(0, 2**raw_bits, K)
+    if K > 5:
+        hv[1], hv[-1] = hv[0], hv[2]
+        hv[3], hv[4] = 0, 2**raw_bits - 1
+    hf = rng.integers(0, 2**32, K)
+    esc_code = int(rng.integers(0, 2**(32 - raw_bits)))
+    esc_len = int(rng.integers(0, 32 - raw_bits + 1))
+    return (torch.from_numpy(q.astype(np.int32)), torch.from_numpy(hv), torch.from_numpy(hf),
+            esc_code, esc_len, lower_bound)
+
+
+def map_phase(dev, card: str, codec, qsyms):
+    """Phase 18: the map kernel against its plain chain on the card (see
+    the module doc). ``codec`` and ``qsyms`` are phase 4's codec and GOP
+    symbols. Returns (largest difference, the kernel's ms and the plain
+    chain's ms on the 1080p GOP's map, its bound)."""
+    import numpy as np
+    import torch
+
+    from ivclab_tpu_torch.models import fastvideo
+    from ivclab_tpu_torch.ops import transform
+    from ivclab_tpu_torch.utils.timing import cuda_ms, hot_map_bound
+
+    launches = transform.MAP_LAUNCHES
+    print(f"[map18] map kernel launches over phases 2-17: {launches}")
+    check(launches > 0, "no main path launched the map kernel")
+    calls = []
+    real = fastvideo.map_gop_hot
+
+    def spy(*args):
+        calls.append(args)
+        return real(*args)
+
+    fastvideo.map_gop_hot = spy
+    try:
+        codec.pack_gop(qsyms, check=False)
+    finally:
+        fastvideo.map_gop_hot = real
+    check(len(calls) == 1, f"pack_gop mapped {len(calls)} times, not once")
+    q, hv, hf, esc_code, esc_len, lb, cap, raw_bits, eob = calls[0]
+    cases = [(f"1080p GOP at its cap {cap}", calls[0])]
+    cases += [(f"1080p GOP at cap {c}", (q, hv, hf, esc_code, esc_len, lb, c, raw_bits, eob))
+              for c in (32, 128) if c != cap]
+    for i, (rb, K, low) in enumerate(((1, 2, 0), (13, 127, -20), (24, 40, -3))):
+        a, *tables = adversarial_map_case(SEED + 18 + i, 32768, rb, K, low)
+        for c in (32, 64, 128):
+            cases.append((f"adversarial blocks, raw_bits {rb}, K {K}, cap {c}",
+                          (a.to(dev), tables[0].to(dev), tables[1].to(dev), *tables[2:], c, rb,
+                           eob)))
+    err = 0
+    for label, args in cases:
+        got = transform.map_gop_hot_cuda(*args)
+        want = transform.map_gop_hot_plain(*args)
+        torch.cuda.synchronize()
+        bad = [int((g.long() != w.long()).sum()) for g, w in zip(got, want)]
+        err = max([err] + [int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)])
+        counts = want[2]
+        print(f"[map18] {label}: N={args[0].shape[0]}, counts up to {int(counts.max())}, "
+              f"{int((counts > args[6]).sum())} past the cap: codes, lens, valid, bw_max, "
+              f"gw_max, cap_ok differing {bad}")
+        check(not any(bad), f"map kernel != plain chain: {label}")
+    before = transform.MAP_LAUNCHES
+    for name, bad_args in (("float symbols", (q.double(), *calls[0][1:])),
+                           ("N not a multiple of 16", (q[:-8], *calls[0][1:])),
+                           ("cap 0", (*calls[0][:6], 0, raw_bits, eob)),
+                           ("raw_bits 25", (*calls[0][:7], 25, eob))):
+        try:
+            transform.map_gop_hot_cuda(*bad_args)
+        except ValueError as e:
+            print(f"[map18] {name} refused: {e}")
+        else:
+            fail(f"the map kernel took {name}")
+    check(transform.MAP_LAUNCHES == before, "a refused map counted a launch")
+
+    args = calls[0]
+    N = q.shape[0]
+    bound = hot_map_bound(N, cap, hv.numel())
+    for _ in range(3):
+        transform.map_gop_hot_cuda(*args)
+        transform.map_gop_hot_plain(*args)
+    kernel_ms, plain_ms = [], []
+    for _ in range(2):  # alternate, kernel first then plain
+        kernel_ms.append(cuda_ms(lambda: transform.map_gop_hot_cuda(*args), 50))
+        plain_ms.append(cuda_ms(lambda: transform.map_gop_hot_plain(*args), 5))
+    ms, plain = float(np.mean(kernel_ms)), float(np.mean(plain_ms))
+    print(f"[map18] 1080p map (N={N}, cap={cap}, K={hv.numel()}, raw_bits={raw_bits}): kernel "
+          f"{kernel_ms} ms per call (CUDA events, 50 launches), plain {plain_ms} ms (5 calls); "
+          f"bound {bound[0]:.4f} ms ({bound[1]}), {bound[0] / ms:.3f} of it ({card})")
+    return err, ms, plain, bound
+
+
 def canon_phase(dev, card: str, intra, adaptive_blob: bytes):
     """Phase 16: the canonical walk kernel against its plain version on the
     card, and the two container decodes that run it (see the module doc).
@@ -1749,7 +1866,7 @@ def main() -> None:
     t_start = time.perf_counter()
 
     from ivclab_tpu_torch import FusedVideoCodec
-    from ivclab_tpu_torch.ops import bitpack, motion
+    from ivclab_tpu_torch.ops import bitpack, motion, transform
     from ivclab_tpu_torch.ops.dct import require_full_fp32
     from ivclab_tpu_torch.runtime import cuda_build
     from ivclab_tpu_torch.utils import fixtures
@@ -2255,7 +2372,11 @@ def main() -> None:
     pack_launches = bitpack.PACK_LAUNCHES
     pack_err, pack_ms, pack_plain_ms, pack_bound = pack_phase(dev, card, codec, qsyms)
 
-    print(f"[smoke] phases 1-17 took {time.perf_counter() - t_start:.1f} s ({card})")
+    # ----------------------------------------- 18. the map kernel against plain
+    map_launches = transform.MAP_LAUNCHES
+    map_err, map_ms, map_plain_ms, map_bound = map_phase(dev, card, codec, qsyms)
+
+    print(f"[smoke] phases 1-18 took {time.perf_counter() - t_start:.1f} s ({card})")
     print(json.dumps({"kernels": [{
         "name": "motion_search",
         "route": "cuda",
@@ -2340,6 +2461,18 @@ def main() -> None:
         "bound_ms": pack_bound[0],
         "bound_by": pack_bound[1],
         "library_ms": None,  # no single PyTorch call packs variable-length codes
+    }, {
+        "name": "map_gop_hot",
+        "route": "cuda",
+        "source": "ivclab_tpu_torch/csrc/grouped_pack.cu",
+        "replaces": "ivclab_tpu/models/fastvideo.py:163",  # XLA operations, not a Pallas kernel
+        "launches": map_launches,
+        "max_abs_err": map_err,
+        "ms": map_ms,  # the 1080p GOP's map at its cap
+        "plain_ms": map_plain_ms,
+        "bound_ms": map_bound[0],
+        "bound_by": map_bound[1],
+        "library_ms": None,  # no single PyTorch call zero-run codes blocks
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

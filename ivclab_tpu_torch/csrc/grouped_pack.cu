@@ -1,6 +1,67 @@
-// The grouped pack's deposit for NVIDIA Hopper (sm_90a): pack_kernel, what
-// ops/bitpack.py::pack_codes_grouped_dense_plain computes, in one pass over
-// the codes.
+// The GOP codec's pack for NVIDIA Hopper (sm_90a), in two kernels: map_kernel
+// turns quantised blocks into the codes, lengths and counts of a hot/escape
+// code (what ops/transform.py::map_gop_hot_plain computes), and pack_kernel
+// deposits codes and lengths into word-aligned group substreams (what
+// ops/bitpack.py::pack_codes_grouped_dense_plain computes). Both read their
+// input once and write their output once.
+//
+// ---- map_kernel: zero-run, code lookup and pack extents in one pass
+//
+// It replaces ivclab_tpu/models/fastvideo.py::_map_gop_hot over
+// ivclab_tpu/ops/zerorun.py::zerorun_encode_blocks_dense,
+// ivclab_tpu/ops/transform.py::map_codes_hot and pack_extents, which are not
+// Pallas kernels: XLA operations (one-hot deposits, a compare against every
+// hot value, reductions). Their PyTorch twin issues about 90 launches over
+// [N, cap] int32 and int64 tensors (a cumsum and a flipped cummin whose
+// indices are thrown away, three scatter_add_ deposits, table lookups,
+// reductions): 9.6 ms for a 1080p GOP (N = 261,120 blocks) on an H100, 60-120
+// times its bytes.
+//
+// What it computes, for block b (row b of qsyms [N, 64] int32, scan order):
+//   nz     = the non-zero positions; last = the last of them (-1: none);
+//   a run start is a zero p <= last whose predecessor is non-zero (or p = 0);
+//   off(p) = the symbols of the positions before p: 1 a non-zero, 2 a run start;
+//   total  = off(64); the block's symbols are its non-zero values at off(p),
+//   for a run start a 0 at off(p) and the run's length at off(p) + 1, and EOB
+//   at total; slots at or past cap are dropped, the rest of the cap slots
+//   are 0; valid[b] = total + 1, also where that exceeds cap;
+//   each slot's symbol s - lower_bound (int32, wrapping) maps to its code:
+//   in [0, 2^raw_bits) and among the hot values, (F >> 6, F & 63) with F the
+//   32-bit sum of the fused entries of every hot value equal to it; else the
+//   escape word ((esc_code << raw_bits) | (sym mod 2^32)) mod 2^32 on
+//   esc_len + raw_bits bits; codes[b, j] for every slot, lens[b, j] 0 from
+//   slot valid[b] on;
+//   bw_max = ceil(the most bits of a block / 32), gw_max = the same of a
+//   16-block group, cap_ok = the largest valid <= cap (0-d tensors).
+//
+// What bounds it on the H100: bytes. 64 int32 symbols a block are read once;
+// cap int64 codes, cap int32 lengths and a count a block are written once:
+// 268 MB for the 1080p GOP at cap 64, 469 MB at cap 128 (0.080 / 0.140 ms;
+// utils/timing.py::hot_map_bound). The integer work is a few dozen
+// instructions a block and a binary search a coded slot.
+//
+// Design:
+//  - One warp per 16-block group, from its first block to its last, the grid
+//    capped at what is resident; the group's bits stay in a register, and
+//    the largest block bits, group bits and count are kept per warp, per CTA
+//    in shared memory, per CTA in scratch, and reduced by a one-CTA second
+//    launch into the three 0-d outputs. No fill, no host read.
+//  - A block is two coalesced 128-byte loads, lane l holding positions l and
+//    l + 32; the next block's loads are issued before the current one is
+//    coded. Two ballots give the 64-bit non-zero mask; the last non-zero,
+//    run starts, each position's slot and each run's length come from
+//    __clzll, __popcll and __ffsll on it: no scan, no index tensor.
+//  - Each lane writes its positions' symbols into the warp's row of cap
+//    ints in shared memory; lanes then read the row slot by slot (clearing it
+//    for the next block) and write codes and lengths as whole cap-wide rows,
+//    zeros included, by coalesced stores.
+//  - The hot table is built once a CTA in shared memory: the hot values in
+//    [0, 2^raw_bits), each once, sorted, with their fused entries summed.
+//    A slot's symbol is found by a binary search of fixed depth over it, for
+//    every raw_bits (1-24) alike; symbol 0, most of the slots, is looked up
+//    once a warp.
+//
+// ---- pack_kernel: the grouped deposit
 //
 // It replaces the deposit of ivclab_tpu/ops/bitpack.py::pack_codes_grouped_dense
 // and pack_codes_grouped_dense2, which are not Pallas kernels: XLA operations
@@ -341,6 +402,223 @@ int pack(const long long* codes, const LenT* lens, long long N, int S, int gs, i
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---- map_kernel
+
+constexpr int MAP_WARPS = 8;        // warps a CTA
+constexpr int MAP_GROUP = 16;       // blocks a group (the pack's group)
+constexpr int MAX_MAP_CAP = 1024;   // slots a block at most
+constexpr int MAX_HOT = 4096;       // hot entries at most
+constexpr int MAP_PARTS = 3;        // per-CTA maxima: block bits, group bits, count
+
+struct MapArgs {
+  const int* __restrict__ qsyms;             // [N, 64]
+  const long long* __restrict__ hot_values;  // [K]
+  const long long* __restrict__ hot_fused;   // [K]
+  long long* __restrict__ codes;             // [N, cap]
+  int* __restrict__ lens;                    // [N, cap]
+  int* __restrict__ valid;                   // [N]
+  int* __restrict__ parts;                   // [gridDim.x * MAP_PARTS] scratch
+  long long G;                               // groups
+  int cap, K, raw_bits, lower_bound, eob, esc_bits;
+  unsigned esc_high;                         // (esc_code << raw_bits) mod 2^32
+};
+
+// The hot table: U distinct values in [0, 2^raw_bits), ascending, with the
+// 32-bit sum of their fused entries; top the largest power of two <= U.
+struct HotTable {
+  const int* value;
+  const unsigned* fused;
+  int U, top;
+};
+
+// The code and length of symbol sym (length before the count mask).
+__device__ __forceinline__ void lookup(int sym, const HotTable& h, const MapArgs& a,
+                                       unsigned& code, int& len) {
+  if (sym >= 0 && sym < (1 << a.raw_bits)) {
+    int pos = 0;  // the entries below sym
+    for (int step = h.top; step > 0; step >>= 1) {
+      if (pos + step <= h.U && h.value[pos + step - 1] < sym) pos += step;
+    }
+    if (pos < h.U && h.value[pos] == sym) {
+      const unsigned f = h.fused[pos];
+      code = f >> 6;
+      len = static_cast<int>(f & 63u);
+      return;
+    }
+  }
+  code = a.esc_high | static_cast<unsigned>(sym);
+  len = a.esc_bits;
+}
+
+// A lane's position p (value x) into the warp's row: a value at its slot, a
+// run start's length after its marker (the marker is the row's 0).
+__device__ __forceinline__ void place(int* row, int x, int p, unsigned long long M,
+                                      unsigned long long R, int cap) {
+  const unsigned long long below = (1ull << p) - 1ull;
+  const int off = __popcll(M & below) + 2 * __popcll(R & below);
+  if ((M >> p) & 1ull) {
+    if (off < cap) row[off] = x;
+  } else if ((R >> p) & 1ull) {
+    if (off + 1 < cap) row[off + 1] = __ffsll(static_cast<long long>(M >> p)) - 1;
+  }
+}
+
+__global__ void __launch_bounds__(MAP_WARPS * 32) map_kernel(const MapArgs a) {
+  extern __shared__ __align__(8) unsigned char map_smem[];
+  __shared__ int n_hot;
+  __shared__ int cta_max[MAP_PARTS];
+  long long* raw_v = reinterpret_cast<long long*>(map_smem);  // [K]
+  unsigned* raw_f = reinterpret_cast<unsigned*>(raw_v + a.K);  // [K]
+  int* first = reinterpret_cast<int*>(raw_f + a.K);            // [K]
+  int* tab_v = first + a.K;                                     // [K]
+  unsigned* tab_f = reinterpret_cast<unsigned*>(tab_v + a.K);   // [K]
+  int* rows = reinterpret_cast<int*>(tab_f + a.K);              // [MAP_WARPS, cap]
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const long long n = 1LL << a.raw_bits;
+
+  for (int i = tid; i < a.K; i += blockDim.x) {
+    raw_v[i] = a.hot_values[i];
+    raw_f[i] = static_cast<unsigned>(a.hot_fused[i]);
+  }
+  for (int t = tid; t < MAP_WARPS * a.cap; t += blockDim.x) rows[t] = 0;
+  if (tid == 0) n_hot = 0;
+  if (tid < MAP_PARTS) cta_max[tid] = 0;
+  __syncthreads();
+  // the first entry of each value in [0, 2^raw_bits)
+  int mine = 0;
+  for (int i = tid; i < a.K; i += blockDim.x) {
+    const long long v = raw_v[i];
+    bool f = v >= 0 && v < n;
+    for (int j = 0; f && j < i; ++j) f = raw_v[j] != v;
+    first[i] = f;
+    mine += f;
+  }
+  if (mine) atomicAdd(&n_hot, mine);
+  __syncthreads();
+  // each first entry at its rank, with the sum of its value's entries
+  for (int i = tid; i < a.K; i += blockDim.x) {
+    if (!first[i]) continue;
+    const long long v = raw_v[i];
+    int rank = 0;
+    unsigned sum = 0;
+    for (int j = 0; j < a.K; ++j) {
+      rank += first[j] && raw_v[j] < v;
+      sum += raw_v[j] == v ? raw_f[j] : 0u;
+    }
+    tab_v[rank] = static_cast<int>(v);
+    tab_f[rank] = sum;
+  }
+  __syncthreads();
+  const int U = n_hot;
+  const HotTable h{tab_v, tab_f, U, U ? 1 << (31 - __clz(U)) : 0};
+  unsigned zero_code;  // symbol 0 of a row: most slots
+  int zero_len;
+  lookup(static_cast<int>(0u - static_cast<unsigned>(a.lower_bound)), h, a, zero_code, zero_len);
+
+  int* row = rows + warp * a.cap;
+  int max_block = 0, max_group = 0, max_count = 0;
+  const long long stride = static_cast<long long>(gridDim.x) * MAP_WARPS;
+  long long g = static_cast<long long>(blockIdx.x) * MAP_WARPS + warp;
+  int nx0 = 0, nx1 = 0;
+  if (g < a.G) {
+    const int* q = a.qsyms + g * MAP_GROUP * 64;
+    nx0 = __ldcs(q + lane);
+    nx1 = __ldcs(q + 32 + lane);
+  }
+  for (; g < a.G; g += stride) {
+    int group_bits = 0;
+    for (int b = 0; b < MAP_GROUP; ++b) {
+      const long long r = g * MAP_GROUP + b;
+      const int x0 = nx0, x1 = nx1;
+      const long long next = b + 1 < MAP_GROUP ? r + 1
+                             : (g + stride < a.G ? (g + stride) * MAP_GROUP : -1);
+      if (next >= 0) {
+        nx0 = __ldcs(a.qsyms + next * 64 + lane);
+        nx1 = __ldcs(a.qsyms + next * 64 + 32 + lane);
+      }
+      const unsigned lo = __ballot_sync(FULL, x0 != 0);
+      const unsigned hi = __ballot_sync(FULL, x1 != 0);
+      const unsigned long long M = (static_cast<unsigned long long>(hi) << 32) | lo;
+      unsigned long long R = 0;
+      int total = 0;
+      if (M) {
+        const int last = 63 - __clzll(static_cast<long long>(M));
+        const unsigned long long in_range = last == 63 ? ~0ull : (2ull << last) - 1ull;
+        R = ~M & ((M << 1) | 1ull) & in_range;
+        total = __popcll(M) + 2 * __popcll(R);
+      }
+      place(row, x0, lane, M, R, a.cap);
+      place(row, x1, lane + 32, M, R, a.cap);
+      if (lane == 0 && total < a.cap) row[total] = a.eob;
+      __syncwarp();
+      const int count = total + 1;
+      long long* codes = a.codes + r * a.cap;
+      int* lens = a.lens + r * a.cap;
+      int bits = 0;
+      for (int j = lane; j < a.cap; j += 32) {
+        const int s = row[j];
+        row[j] = 0;
+        unsigned code = zero_code;
+        int len = zero_len;
+        if (s != 0) {
+          lookup(static_cast<int>(static_cast<unsigned>(s) - static_cast<unsigned>(a.lower_bound)),
+                 h, a, code, len);
+        }
+        len = j < count ? len : 0;
+        codes[j] = static_cast<long long>(code);
+        lens[j] = len;
+        bits += len;
+      }
+      bits = __reduce_add_sync(FULL, bits);
+      if (lane == 0) a.valid[r] = count;
+      group_bits += bits;
+      max_block = max(max_block, bits);
+      max_count = max(max_count, count);
+      __syncwarp();
+    }
+    max_group = max(max_group, group_bits);
+  }
+  if (lane == 0) {
+    atomicMax(&cta_max[0], max_block);
+    atomicMax(&cta_max[1], max_group);
+    atomicMax(&cta_max[2], max_count);
+  }
+  __syncthreads();
+  if (tid < MAP_PARTS) a.parts[static_cast<long long>(blockIdx.x) * MAP_PARTS + tid] = cta_max[tid];
+}
+
+// One CTA: the maxima of the map's n_parts CTAs into bw_max, gw_max, cap_ok.
+__global__ void __launch_bounds__(256) map_extents_kernel(const int* __restrict__ parts,
+                                                          int n_parts, int cap,
+                                                          long long* bw_max, long long* gw_max,
+                                                          unsigned char* cap_ok) {
+  __shared__ int best[MAP_PARTS][8];
+  int m[MAP_PARTS] = {0, 0, 0};
+  for (int i = threadIdx.x; i < n_parts; i += blockDim.x) {
+#pragma unroll
+    for (int k = 0; k < MAP_PARTS; ++k) m[k] = max(m[k], parts[i * MAP_PARTS + k]);
+  }
+#pragma unroll
+  for (int k = 0; k < MAP_PARTS; ++k) m[k] = __reduce_max_sync(FULL, m[k]);
+  const int warp = threadIdx.x >> 5;
+  if ((threadIdx.x & 31) == 0) {
+#pragma unroll
+    for (int k = 0; k < MAP_PARTS; ++k) best[k][warp] = m[k];
+  }
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    for (int w = 1; w < static_cast<int>(blockDim.x >> 5); ++w) {
+#pragma unroll
+      for (int k = 0; k < MAP_PARTS; ++k) m[k] = max(m[k], best[k][w]);
+    }
+    *bw_max = (m[0] + 31) / 32;
+    *gw_max = (m[1] + 31) / 32;
+    *cap_ok = m[2] <= cap ? 1 : 0;
+  }
+}
+
 }  // namespace
 
 // codes: [N, S] int64 (low 32 bits used); lens: [N, S] int32 (len_bytes 4)
@@ -370,3 +648,42 @@ extern "C" int ivc_pack_grouped(const long long* codes, const void* lens, int le
 
 // The scratch ints ivc_pack_grouped needs beyond one a group.
 extern "C" int ivc_pack_grouped_parts() { return MAX_PARTS; }
+
+// qsyms: [N, 64] int32; hot_values, hot_fused: [K] int64; codes: [N, cap]
+// int64; lens: [N, cap] int32; valid: [N] int32; bw_max, gw_max: 0-d int64;
+// cap_ok: 0-d bool (one byte); scratch: [3 * 8192] int32. All on one device,
+// contiguous; the outputs need no initial value. esc_high is (esc_code <<
+// raw_bits) mod 2^32. Returns 0, or a cudaError_t: cudaErrorInvalidValue for
+// sizes the kernel does not take (N below 16 or not a multiple of 16, cap
+// outside [1, 1024], K outside [0, 4096], raw_bits outside [1, 24], esc_len
+// outside [0, 63 - raw_bits]), else the launch's error. Runs on `stream`
+// without synchronising: two launches, map_kernel and map_extents_kernel.
+extern "C" int ivc_map_gop_hot(const int* qsyms, long long N, int cap,
+                               const long long* hot_values, const long long* hot_fused, int K,
+                               int lower_bound, int eob, unsigned esc_high, int esc_len,
+                               int raw_bits, long long* codes, int* lens, int* valid,
+                               long long* bw_max, long long* gw_max, unsigned char* cap_ok,
+                               int* scratch, void* stream) {
+  if (N < MAP_GROUP || N % MAP_GROUP != 0 || cap < 1 || cap > MAX_MAP_CAP || K < 0 ||
+      K > MAX_HOT || raw_bits < 1 || raw_bits > 24 || esc_len < 0 || esc_len > 63 - raw_bits) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const long long G = N / MAP_GROUP;
+  const MapArgs args{qsyms, hot_values, hot_fused, codes, lens, valid, scratch, G, cap, K,
+                     raw_bits, lower_bound, eob, esc_len + raw_bits, esc_high};
+  const int smem = K * 24 + MAP_WARPS * cap * 4;
+  int ctas = 0;
+  const int rc = resident_ctas(reinterpret_cast<const void*>(map_kernel), MAP_WARPS * 32, smem,
+                               &ctas);
+  if (rc != 0) return rc;
+  long long grid = (G + MAP_WARPS - 1) / MAP_WARPS;
+  grid = grid < ctas ? grid : ctas;
+  grid = grid < MAX_PARTS ? grid : MAX_PARTS;
+  const auto st = static_cast<cudaStream_t>(stream);
+  map_kernel<<<static_cast<unsigned>(grid), MAP_WARPS * 32, smem, st>>>(args);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  map_extents_kernel<<<1, 256, 0, st>>>(scratch, static_cast<int>(grid), cap, bw_max, gw_max,
+                                        cap_ok);
+  return static_cast<int>(cudaGetLastError());
+}

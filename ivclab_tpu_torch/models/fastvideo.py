@@ -39,15 +39,12 @@ from ivclab_tpu_torch.ops.transform import (
     forward_symbolize,
     inverse_reconstruct,
     map_codes_hot,
+    map_gop_hot,
     pack_extents,
     pack_grouped_sized,
     symbol_histogram,
 )
-from ivclab_tpu_torch.ops.zerorun import (
-    zerorun_counts,
-    zerorun_decode_blocks,
-    zerorun_encode_blocks,
-)
+from ivclab_tpu_torch.ops.zerorun import zerorun_counts, zerorun_decode_blocks
 from ivclab_tpu_torch.runtime.container import GroupedSection, HotCodebook, VideoPayload
 from ivclab_tpu_torch.runtime.trace import fetch, span
 from ivclab_tpu_torch.utils.shape import upload
@@ -119,20 +116,16 @@ def _encode_gop(frames_y, qt, inv_qt, mv_lens, sr: int):
 
 def _map_gop_hot(qsyms, hot_vals, hot_fused, esc_code, esc_len, lower_bound, cap: int,
                  raw_bits: int):
-    """Zero-run encode + hot/escape code mapping, flat over T*N.
+    """Zero-run encode + hot/escape code mapping, flat over T*N
+    (:func:`map_gop_hot`: the map kernel on a card).
 
     Also returns the pack extents (max block words, max group words) and a
     capacity flag, so the caller can check its sticky buckets on the device.
     """
     T, N, _ = qsyms.shape
     with span("ivc.pack.map", qsyms.device):
-        flat = qsyms.reshape(T * N, 64)
-        buf, valid = zerorun_encode_blocks(flat, 64, EOB, cap)
-        codes, lens = map_codes_hot(buf - lower_bound, valid, hot_vals, hot_fused,
-                                    esc_code, esc_len, raw_bits)
-        bw_max, gw_max = pack_extents(lens)
-        cap_ok = valid.max() <= cap  # valid holds the true per-block counts
-    return codes, lens, valid, bw_max, gw_max, cap_ok
+        return map_gop_hot(qsyms.reshape(T * N, 64), hot_vals, hot_fused, esc_code, esc_len,
+                           lower_bound, cap, raw_bits, EOB)
 
 
 def _decode_gop_hot(words, block_offsets, block_counts, mvs, lj, first_code, group_offset,

@@ -360,6 +360,10 @@ def _pack_lib():
     lib.ivc_pack_grouped.restype = i
     lib.ivc_pack_grouped_parts.argtypes = []
     lib.ivc_pack_grouped_parts.restype = i
+    u = ctypes.c_uint
+    lib.ivc_map_gop_hot.argtypes = [vp, ll, i, vp, vp, i, i, i, u, i, i, vp, vp, vp, vp, vp, vp,
+                                    vp, vp]
+    lib.ivc_map_gop_hot.restype = i
     lib.parts = lib.ivc_pack_grouped_parts()  # scratch ints past one a group
     return lib
 

@@ -9,7 +9,10 @@ intra and adaptive video codecs (``pack_symbols``, one flat stream;
 hot/escape code mapping ``map_codes_hot`` of the GOP codec, and the
 packers' sizing helpers. Also ``decode_grouped_planes``, the one decode of
 a coded grouped section (pixels back from the intra, adaptive and P-frame
-containers).
+containers), and ``map_gop_hot``, the GOP codec's map from quantised blocks
+to codes, lengths, counts and pack extents: the plain chain
+(``map_gop_hot_plain``) on the CPU, the kernel of ``csrc/grouped_pack.cu``
+on a card.
 """
 
 from __future__ import annotations
@@ -20,19 +23,34 @@ from ivclab_tpu_torch.entropy.stats import histogram_int32
 from ivclab_tpu_torch.ops.bitpack import (
     MASK32,
     _as_i64,
+    _pack_lib,
     decode_blocks_device,
     pack_codes,
     pack_codes_grouped_dense,
     symbol_bit_layout,
 )
 from ivclab_tpu_torch.ops.dct import dct2_fused, idct2_fused
-from ivclab_tpu_torch.ops.zerorun import BLOCK_CAP, zerorun_decode_blocks, zerorun_encode_blocks
-from ivclab_tpu_torch.runtime.trace import span
+from ivclab_tpu_torch.ops.zerorun import (
+    BLOCK_CAP,
+    DEFAULT_EOB,
+    zerorun_decode_blocks,
+    zerorun_encode_blocks,
+)
+from ivclab_tpu_torch.runtime.trace import count, span
 
 # Group geometry of the grouped packer: 16 blocks per word-aligned
 # substream; worst case 16 blocks x 97 symbols x 32 bits = 1552 words.
 PACK_GROUP = 16
 GROUP_WORDS = 1600
+
+# Calls of the map kernel (``csrc/grouped_pack.cu::map_kernel``) made in this
+# process by ``map_gop_hot_cuda``.
+MAP_LAUNCHES = 0
+# The most slots a block and hot entries the map kernel takes (its
+# ``MAX_MAP_CAP`` and ``MAX_HOT``); the GOP codec's caps are 32-128, its
+# codes' K at most 127.
+MAP_MAX_CAP = 1024
+MAP_MAX_HOT = 4096
 
 # Symbol-capacity buckets: a decoder walks the smallest one that holds the
 # stream's largest block (its sidecar says which), not the 128-slot worst case.
@@ -251,3 +269,94 @@ def pack_extents(lens: torch.Tensor):
     G = lens.shape[0] // PACK_GROUP
     gw = (block_bits.reshape(G, PACK_GROUP).sum(dim=1).max() + 31) // 32
     return bw, gw
+
+
+def map_gop_hot_plain(qsyms: torch.Tensor, hot_values, hot_fused, esc_code: int, esc_len: int,
+                      lower_bound: int, cap: int, raw_bits: int, eob: int = DEFAULT_EOB):
+    """Quantised blocks ``[N, 64]`` -> what the GOP codec's pack takes, in
+    plain PyTorch: zero-run symbols in ``cap`` slots a block
+    (:func:`zerorun_encode_blocks`), less ``lower_bound``, mapped by
+    :func:`map_codes_hot`, and :func:`pack_extents` of the lengths.
+
+    Returns (codes ``[N, cap]`` int64 < 2^32, lens ``[N, cap]`` int32, valid
+    ``[N]`` int32, the true symbol counts with EOB, also past ``cap``,
+    bw_max and gw_max as 0-d int64 tensors, cap_ok: a 0-d bool tensor,
+    ``valid.max() <= cap``). N must be a multiple of :data:`PACK_GROUP`.
+    """
+    buf, valid = zerorun_encode_blocks(qsyms, 64, eob, cap)
+    codes, lens = map_codes_hot(buf - lower_bound, valid, hot_values, hot_fused, esc_code,
+                                esc_len, raw_bits)
+    bw_max, gw_max = pack_extents(lens)
+    return codes, lens, valid, bw_max, gw_max, valid.max() <= cap
+
+
+def map_gop_hot_cuda(qsyms: torch.Tensor, hot_values, hot_fused, esc_code: int, esc_len: int,
+                     lower_bound: int, cap: int, raw_bits: int, eob: int = DEFAULT_EOB):
+    """Launch the Hopper map kernel (``csrc/grouped_pack.cu::map_kernel``):
+    what :func:`map_gop_hot_plain` computes, bit for bit, one warp a
+    16-block group, and a one-CTA launch for the three 0-d extents.
+
+    ``qsyms`` must be an ``[N, 64]`` integer CUDA tensor, N a positive
+    multiple of :data:`PACK_GROUP`; ``cap`` in [1, :data:`MAP_MAX_CAP`],
+    ``raw_bits`` in [1, 24], ``esc_len`` in [0, 63 - raw_bits], at most
+    :data:`MAP_MAX_HOT` hot entries, ``lower_bound`` and ``eob`` int32.
+    Hot values outside ``[0, 2^raw_bits)`` match no symbol (the plain
+    chain's table raises on them). Raises on anything else and on a launch
+    error. Allocates the outputs and a scratch of 3 * 8192 ints; runs on
+    the current stream without synchronising; counted in
+    :data:`MAP_LAUNCHES` and the recorder's ``map_kernel``.
+    """
+    global MAP_LAUNCHES
+    if qsyms.dtype.is_floating_point or qsyms.dtype.is_complex or qsyms.dtype == torch.bool:
+        raise ValueError(f"qsyms must be an integer tensor, got {qsyms.dtype}")
+    if qsyms.dim() != 2 or qsyms.shape[1] != 64:
+        raise ValueError(f"qsyms must be [N, 64], got {tuple(qsyms.shape)}")
+    N = qsyms.shape[0]
+    cap, raw_bits, esc_len = int(cap), int(raw_bits), int(esc_len)
+    lower_bound, eob = int(lower_bound), int(eob)
+    if N < PACK_GROUP or N % PACK_GROUP:
+        raise ValueError(f"N={N} must be a positive multiple of {PACK_GROUP}")
+    if not (1 <= cap <= MAP_MAX_CAP and 1 <= raw_bits <= 24 and 0 <= esc_len <= 63 - raw_bits):
+        raise ValueError(f"cap={cap} must lie in [1, {MAP_MAX_CAP}], raw_bits={raw_bits} in "
+                         f"[1, 24], esc_len={esc_len} in [0, {63 - raw_bits}]")
+    if not all(-2**31 <= v < 2**31 for v in (lower_bound, eob)):
+        raise ValueError(f"lower_bound={lower_bound} and eob={eob} must be int32")
+    dev = qsyms.device
+    hv = _as_i64(hot_values, dev).reshape(-1).contiguous()
+    hf = _as_i64(hot_fused, dev).reshape(-1).contiguous()
+    K = hv.shape[0]
+    if hf.shape[0] != K or K > MAP_MAX_HOT:
+        raise ValueError(f"{K} hot values and {hf.shape[0]} fused entries: one count, at most "
+                         f"{MAP_MAX_HOT}")
+    if not qsyms.is_cuda:
+        raise ValueError(f"needs CUDA symbols, got a tensor on {qsyms.device}")
+    qsyms = qsyms.to(torch.int32).contiguous()
+    codes = torch.empty((N, cap), dtype=torch.int64, device=dev)
+    lens = torch.empty((N, cap), dtype=torch.int32, device=dev)
+    valid = torch.empty(N, dtype=torch.int32, device=dev)
+    bw_max = torch.empty((), dtype=torch.int64, device=dev)
+    gw_max = torch.empty((), dtype=torch.int64, device=dev)
+    cap_ok = torch.empty((), dtype=torch.bool, device=dev)
+    lib = _pack_lib()
+    scratch = torch.empty(3 * lib.parts, dtype=torch.int32, device=dev)
+    esc_high = ((int(esc_code) & MASK32) << raw_bits) & MASK32
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    rc = lib.ivc_map_gop_hot(qsyms.data_ptr(), N, cap, hv.data_ptr(), hf.data_ptr(), K,
+                             lower_bound, eob, esc_high, esc_len, raw_bits, codes.data_ptr(),
+                             lens.data_ptr(), valid.data_ptr(), bw_max.data_ptr(),
+                             gw_max.data_ptr(), cap_ok.data_ptr(), scratch.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"map kernel refused or failed (cudaError {rc}): N={N}, cap={cap}, "
+                           f"K={K}, raw_bits={raw_bits}, esc_len={esc_len}")
+    MAP_LAUNCHES += 1
+    count("map_kernel")
+    return codes, lens, valid, bw_max, gw_max, cap_ok
+
+
+def map_gop_hot(qsyms: torch.Tensor, hot_values, hot_fused, esc_code: int, esc_len: int,
+                lower_bound: int, cap: int, raw_bits: int, eob: int = DEFAULT_EOB):
+    """The GOP codec's map (see :func:`map_gop_hot_plain` for what it
+    returns): CUDA symbols launch the kernel through
+    :func:`map_gop_hot_cuda`, CPU symbols run the plain chain."""
+    fn = map_gop_hot_cuda if qsyms.is_cuda else map_gop_hot_plain
+    return fn(qsyms, hot_values, hot_fused, esc_code, esc_len, lower_bound, cap, raw_bits, eob)

@@ -91,6 +91,19 @@ def grouped_pack_bound(N: int, S: int, G: int, wpg: int, len_bytes: int = 4
     return nbytes / H100_HBM_BYTES_PER_S * 1e3, "bytes"
 
 
+def hot_map_bound(N: int, cap: int, K: int = 0) -> tuple[float, str]:
+    """(least ms, "bytes") for one map of the GOP codec's pack
+    (``ops/transform.py::map_gop_hot``) of ``N`` blocks into ``cap`` slots
+    on the H100: the 64 int32 symbols a block and the ``K`` int64 hot values
+    and fused entries read once; the int64 codes and int32 lengths of every
+    slot, the int32 count a block and the three 0-d extents (two int64, one
+    bool) written once. The zero-run and the lookups, a few dozen
+    instructions a block and a short search a coded slot, are far below
+    that."""
+    nbytes = N * 64 * 4 + K * 16 + N * cap * (8 + 4) + N * 4 + 17
+    return nbytes / H100_HBM_BYTES_PER_S * 1e3, "bytes"
+
+
 def cuda_ms(fn, iters: int) -> float:
     """Mean ms per call of ``fn`` between two CUDA events around ``iters``
     calls (host enqueue included where it is the slower side)."""
